@@ -14,13 +14,22 @@ Phases, one line of output each, any failure exits non-zero:
    geometries and the main path's 1080p batch 48, and both times there;
 3. K4 (embed epilogue) against its plain version at 1080p, n = 1000,
    batches 4 and 48, and both times at batch 48;
-4. the main path: ``embed_verified`` at 1080p, batch 48, n = 1000, DEFAULT
+4. K6a/K6b (the 2-D DCT and its inverse, f32) against their plain versions
+   at 444x640, 640x444, 37x59, 48x1080x1920, 1920x1080 and 2x2160x3840,
+   and both times at 48x1080x1920;
+5. the main path: ``embed_verified`` at 1080p, batch 48, n = 1000, DEFAULT
    on 1/f textures, with the kernels' launch counts from that one call, the
    detection checks, the detect path's bit-equality, agreement with the
    CPU run of the same code on a small input, a stage breakdown,
    images/s on random u8 chained from call to call as ``bench.py`` does,
    and the device's idle share under ``torch.profiler``;
-5. 4K, batch 8: one ``embed_verified`` on 1/f textures, and images/s.
+6. the HIGHEST path (every config's default) at the same shape:
+   ``embed_verified`` with K6a's launch count from that call, detection,
+   ``extract`` bit-equal to its extraction and ``extract_prepared`` within
+   0.01 sigma of it, ``embed(sparse_idct=False)`` with K6b's launch count,
+   the CPU agreement check, Writer/Reader/Tester on one image, a stage
+   breakdown, images/s and the idle share;
+7. 4K, batch 8: one ``embed_verified`` on 1/f textures, and images/s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -90,7 +99,7 @@ def abs_term_sum(rgb, base):
     from spread_spectrum_watermarking_torch.ops import colorspace, dct
 
     if base is None:
-        y = colorspace.rgb_to_luma(colorspace.u8_to_f32(rgb))
+        y = colorspace.luma_u8(rgb)
     else:
         y = colorspace.luma_diff(base, rgb)
     y = y.to(torch.bfloat16).float().abs()
@@ -234,6 +243,76 @@ def phase_k4() -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
 
 
+def _compare_k6(x, inverse: bool) -> tuple[float, float]:
+    """K6a (or K6b) on ``x`` against its plain version; logs, raises outside
+    the gamma bound 2 (H + W) u |L| |X| |R|^T (one more rounding for K6b's
+    scale), returns (max |err|, share of the bound used)."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    b, h, w = x.shape
+    kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
+    plain = k6.idct2_2d_fused_reference if inverse else k6.dct2_2d_fused_reference
+    t = kernel(x)
+    torch.cuda.synchronize()
+    d = (t - plain(x)).abs()
+    del t
+    left = dct.basis_tensor(h, x.device, torch.float32, inverse).abs()
+    right = dct.basis_tensor(w, x.device, torch.float32, inverse).abs()
+    scale = k6.inverse_scale(h, w) if inverse else 1.0
+    units = F32_U * scale * dct.matmul_f32(dct.matmul_f32(left, x.abs()),
+                                           right.t())
+    bound = 2 * (h + w + int(inverse))
+    used = float((d / units).max())
+    name = "k6b" if inverse else "k6a"
+    log(name, shape=[b, h, w], max_abs_err=float(d.max()),
+        share_differing=float((d > 0).float().mean()),
+        max_err_in_u_sum_abs=used, bound_in_u_sum_abs=bound,
+        share_of_bound_used=used / bound)
+    if not used <= bound:
+        raise AssertionError(f"{name} {b}x{h}x{w}: outside the gamma bound")
+    return float(d.max()), used / bound
+
+
+def phase_k6() -> tuple[dict, dict]:
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {False: 0.0, True: 0.0}
+    for b, h, w in [(2, 444, 640), (2, 640, 444), (2, 37, 59),
+                    (48, 1080, 1920), (1, 1920, 1080), (2, 2160, 3840)]:
+        # Luma-like planes in [0, 1]; K6b takes them as coefficients.
+        x = torch.rand((b, h, w), generator=gen, device="cuda")
+        for inverse in (False, True):
+            err, _ = _compare_k6(x, inverse)
+            worst[inverse] = max(worst[inverse], err)
+        del x
+        torch.cuda.empty_cache()
+    x = torch.rand((48, 1080, 1920), generator=gen, device="cuda")
+    recs = []
+    for inverse in (False, True):
+        kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
+        plain = (k6.idct2_2d_fused_reference if inverse
+                 else k6.dct2_2d_fused_reference)
+        recs.append({"max_abs_err": worst[inverse],
+                     "ms": time_ms(lambda: kernel(x), 5),
+                     "plain_ms": time_ms(lambda: plain(x), 5)})
+    log("k6_time", shape=[48, 1080, 1920], k6a_ms=recs[0]["ms"],
+        k6a_plain_ms=recs[0]["plain_ms"], k6b_ms=recs[1]["ms"],
+        k6b_plain_ms=recs[1]["plain_ms"],
+        k6a_tflops=2 * 48 * (1080 * 1080 * 1920 + 1080 * 1920 * 1920)
+        / (recs[0]["ms"] * 1e9))
+    x4 = torch.rand((2, 2160, 3840), generator=gen, device="cuda")
+    log("k6_time", shape=[2, 2160, 3840],
+        k6a_ms=time_ms(lambda: k6.dct2_2d_fused(x4), 3),
+        k6a_plain_ms=time_ms(lambda: k6.dct2_2d_fused_reference(x4), 3))
+    return recs[0], recs[1]
+
+
 def _check_detection(tag: str, ext, marks, gen) -> dict:
     import torch
 
@@ -314,20 +393,10 @@ def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
             "top_kernels_ms": [[name[:60], ms] for name, ms in top]}
 
 
-def _stage_breakdown(rgb, marks, cfg) -> dict:
-    """ms per stage of one embed_verified call, CUDA events around each."""
+def _stage_timer(stages: dict):
+    """``run(name, fn)``: calls ``fn``, records its ms in ``stages`` (CUDA
+    events around it, then a sync) and returns its result."""
     import torch
-
-    from spread_spectrum_watermarking_torch.kernels.embed_epilogue import (
-        embed_epilogue)
-    from spread_spectrum_watermarking_torch.kernels.luma_pass import luma_pass
-    from spread_spectrum_watermarking_torch.models import pipeline as tp
-    from spread_spectrum_watermarking_torch.ops import dct, modulation, ranking
-
-    h, w = rgb.shape[1:3]
-    ax = dct.shorter_axis(h, w)
-    stages = {}
-    box = {}
 
     def run(name, fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -338,6 +407,22 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
         torch.cuda.synchronize()
         stages[name] = start.elapsed_time(end)
         return out
+    return run
+
+
+def _stage_breakdown(rgb, marks, cfg) -> dict:
+    """ms per stage of one embed_verified call, CUDA events around each."""
+    from spread_spectrum_watermarking_torch.kernels.embed_epilogue import (
+        embed_epilogue)
+    from spread_spectrum_watermarking_torch.kernels.luma_pass import luma_pass
+    from spread_spectrum_watermarking_torch.models import pipeline as tp
+    from spread_spectrum_watermarking_torch.ops import dct, modulation, ranking
+
+    h, w = rgb.shape[1:3]
+    ax = dct.shorter_axis(h, w)
+    stages = {}
+    box = {}
+    run = _stage_timer(stages)
 
     for _ in range(2):  # the first round warms up; the second is kept
         box["t"] = run("k1_first_pass", lambda: luma_pass(rgb))
@@ -353,8 +438,8 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
                             lambda: embed_epilogue(rgb, *box["ab"]))
         box["td"] = run("k1_pair_pass",
                         lambda: luma_pass(box["marked"], rgb))
-        run("read_dot_at", lambda: dct.dct2_dot_at(box["td"], idx,
-                                                   contracted_axis=ax))
+        run("read_dot_at", lambda: dct.dct2_dot_at(
+            box["td"], idx, contracted_axis=ax, precision=cfg.precision))
     return stages
 
 
@@ -424,6 +509,146 @@ def phase_main_path(k1_rec: dict, k4_rec: dict) -> None:
         **_device_profile(rand, marks, cfg))
 
 
+def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
+    """ms per stage of one HIGHEST embed_verified call (its sparse embed,
+    then its read), CUDA events around each."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.models import pipeline as tp
+    from spread_spectrum_watermarking_torch.ops import (colorspace, dct,
+                                                        modulation, ranking)
+
+    b, h, w = rgb.shape[:3]
+    stages = {}
+    box = {}
+    run = _stage_timer(stages)
+    ie = cfg.insertion
+    for _ in range(2):  # the first round warms up; the second is kept
+        rgbf = run("to_f32", lambda: tp._to_f32(rgb))
+        y = run("luma", lambda: tp._luma(rgb))
+        box["c"] = run("k6a_forward", lambda: dct.dct2_2d(y))
+        box["idx"] = run("select", lambda: ranking.top_indices(
+            box["c"], N, cfg.ordering))
+        idx = box["idx"]
+        box["orig"] = run("gather", lambda: torch.gather(
+            box["c"].reshape(b, h * w), -1, idx))
+        box["new"] = run("modulate", lambda: modulation.embed_marks(
+            box["orig"], marks[None].expand(b, *marks.shape), ie.method,
+            ie.alpha))
+        box["dy"] = run("sparse_delta", lambda: tp._sparse_idct_delta(
+            box["new"] - box["orig"], idx, h, w, cfg.precision))
+        box["m"] = run("add_and_quantize", lambda: colorspace.f32_to_u8(
+            torch.clamp(rgbf + box["dy"][..., None], 0.0, 1.0)))
+        yd = run("derived_luma", lambda: tp._luma(box["m"]))
+        run("coeffs_at", lambda: dct.dct2_coeffs_at(yd, idx))
+    return stages
+
+
+def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
+    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+
+    cfg, rcfg = wm.WriteConfig(), wm.ReadConfig()  # HIGHEST, the default
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rgb = textures(60, 48, 1080, 1920)
+    marks = torch.randn((48, 1, N), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    k1.LAUNCHES = k4.LAUNCHES = 0
+    k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
+    marked, ext = wm.embed_verified(rgb, marks, cfg)
+    torch.cuda.synchronize()
+    k6a_rec["launches"] = k6.FORWARD_LAUNCHES
+    if k6.FORWARD_LAUNCHES == 0:
+        raise AssertionError("the HIGHEST path did not launch K6a")
+    det = _check_detection("1080p HIGHEST", ext, marks, gen)
+    if marked.shape != rgb.shape or marked.dtype != torch.uint8:
+        raise AssertionError("marked output has the wrong shape or type")
+    extracted = wm.extract(rgb, marked, N, rcfg)
+    if not torch.equal(ext, extracted):
+        raise AssertionError("extract differs from embed_verified's read")
+    flat, idx = wm.prepare_base(rgb, N, rcfg)
+    prepared = wm.extract_prepared(flat, idx, wm.prepare_derived(marked, rcfg),
+                                   rcfg)
+    del flat
+    own = torch.diagonal(wm.similarity(ext, marks[:, 0]))
+    gap = float((torch.diagonal(wm.similarity(prepared, marks[:, 0]))
+                 - own).abs().max())
+    if not gap <= 0.01:
+        raise AssertionError(f"extract_prepared is {gap} sigma off")
+    log("highest_path", shape=[48, 1080, 1920], n=N,
+        launches_k6a=k6a_rec["launches"],
+        launches_others=[k1.LAUNCHES, k4.LAUNCHES, k6.INVERSE_LAUNCHES],
+        extract_bit_equal=True, prepared_max_gap_sigma=gap,
+        share_pixels_changed=float((marked != rgb).float().mean()), **det)
+
+    # The reference's full inverse: K6b.
+    k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
+    full = wm.embed(rgb, marks, cfg, sparse_idct=False)
+    torch.cuda.synchronize()
+    k6b_rec["launches"] = k6.INVERSE_LAUNCHES
+    if k6.INVERSE_LAUNCHES == 0:
+        raise AssertionError("embed(sparse_idct=False) did not launch K6b")
+    step = int((full.int() - marked.int()).abs().max())
+    det_full = _check_detection("1080p full inverse",
+                                wm.extract(rgb, full, N, rcfg), marks, gen)
+    if step > 1:
+        raise AssertionError(f"full inverse is {step} steps off the sparse one")
+    log("highest_full_inverse", shape=[48, 1080, 1920], n=N,
+        launches_k6b=k6b_rec["launches"], max_u8_step_from_sparse=step,
+        share_pixels_off_sparse=float((full != marked).float().mean()),
+        **det_full)
+    del full, extracted, prepared
+
+    # The same code on the CPU (plain kernel versions), small input.
+    small = textures(70, 2, 96, 128)
+    small_marks = torch.randn((2, 1, 200), generator=gen, device="cuda")
+    g_marked, g_ext = wm.embed_verified(small, small_marks, cfg)
+    c_marked, c_ext = wm.embed_verified(small.cpu(), small_marks.cpu(), cfg)
+    g_idx = wm.prepare_base(small, 200, rcfg)[1].cpu()
+    c_idx = wm.prepare_base(small.cpu(), 200, rcfg)[1]
+    recall = np.mean([len(set(a.tolist()) & set(b.tolist())) / 200
+                      for a, b in zip(g_idx, c_idx)])
+    step = int((g_marked.cpu().int() - c_marked.int()).abs().max())
+    sm = small_marks[:, 0].cpu()
+    sim_gap = float((torch.diagonal(wm.similarity(g_ext.cpu(), sm))
+                     - torch.diagonal(wm.similarity(c_ext, sm))).abs().max())
+    log("highest_cpu_agreement", shape=[2, 96, 128], n=200, idx_recall=recall,
+        idx_equal=bool(torch.equal(g_idx, c_idx)), max_u8_step=step,
+        max_sim_gap_sigma=sim_gap)
+    if recall < 0.99 or step > 1 or sim_gap > 0.01:
+        raise AssertionError("card and CPU runs of the HIGHEST path disagree")
+
+    # The object API on one image, on the card.
+    img = rgb[0].cpu().numpy()
+    mark = marks[0, 0].cpu().numpy()
+    out = wm.Writer(img, device="cuda").mark(mark)
+    got = wm.Reader.base(img, device="cuda").extract(
+        wm.Reader.derived(out, device="cuda"), N)
+    sim = wm.Tester(got, device="cuda").similarity(mark)
+    step = int(np.abs(out.astype(int) - marked[0].cpu().numpy()).max())
+    if not (sim.exceeds_sigma(SIGMA) and step <= 1):
+        raise AssertionError("Writer/Reader/Tester on the card disagree")
+    log("highest_api", shape=list(img.shape), n=N, similarity=sim.similarity,
+        max_u8_step_from_batch=step)
+
+    log("highest_stages_ms", shape=[48, 1080, 1920], n=N,
+        **_stage_breakdown_highest(rgb, marks[0], cfg))
+    del marked, ext, rgb
+    torch.cuda.empty_cache()
+    rand = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    rates = _images_per_sec(rand, marks, cfg, runs=3)
+    log("highest_rate", shape=[48, 1080, 1920], n=N,
+        images_per_sec_median=statistics.median(rates), runs=rates)
+    log("highest_profile", shape=[48, 1080, 1920], n=N,
+        **_device_profile(rand, marks, cfg))
+
+
 def phase_4k() -> None:
     import torch
 
@@ -471,14 +696,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4_rec.update(phase_k4())
     torch.cuda.empty_cache()
+    k6_src = "spread_spectrum_watermarking_torch/csrc/dct2d_fused.cu"
+    k6_tpu = "spread_spectrum_watermarking_tpu/ops/dct_pallas.py"
+    k6a_rec = {"name": "dct2_2d_fused", "route": "cuda", "source": k6_src,
+               "replaces": f"{k6_tpu}:58 (git fa94855)"}
+    k6b_rec = {"name": "idct2_2d_fused", "route": "cuda", "source": k6_src,
+               "replaces": f"{k6_tpu}:97 (git fa94855)"}
+    k6a_time, k6b_time = phase_k6()
+    k6a_rec.update(k6a_time)
+    k6b_rec.update(k6b_time)
+    torch.cuda.empty_cache()
     phase_main_path(k1_rec, k4_rec)
+    torch.cuda.empty_cache()
+    phase_highest(k6a_rec, k6b_rec)
     torch.cuda.empty_cache()
     phase_4k()
     log("done", seconds=time.perf_counter() - t0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in order}
-                                  for rec in (k1_rec, k4_rec)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
+                                  (k1_rec, k4_rec, k6a_rec, k6b_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

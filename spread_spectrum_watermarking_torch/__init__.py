@@ -2,21 +2,28 @@
 
 The port of ``spread_spectrum_watermarking_tpu`` (the JAX reference, which
 stays beside it). This package imports ``torch`` and numpy, never ``jax``.
-It covers the fast tier (``Precision.DEFAULT``, rank generation 2): embed,
-embed-and-verify, and the reader-cached rank/extract pair. Importing it
-builds and loads no kernel.
+It covers the reference-exact tier (``Precision.HIGHEST``, every config's
+default: embed with the sparse or the full inverse, extract, the prepared
+base/derived pair) and the fast tier (``Precision.DEFAULT``, rank
+generation 2: embed, embed-and-verify, the reader-cached rank/extract
+pair), and the Writer/Reader/Tester wrappers. Importing it builds and loads
+no kernel.
 """
 
+from .api import Reader, ReaderDerived, Similarity, Tester, Writer
 from .config import (RANK_VERSION, InsertExtract, Method, Ordering, Precision,
                      ReadConfig, WriteConfig)
 from .marks import as_marks, generate_normal
-from .models.pipeline import (embed, embed_verified, extract_ranked,
+from .models.pipeline import (embed, embed_verified, extract, extract_prepared,
+                              extract_ranked, prepare_base, prepare_derived,
                               rank_base, rank_plane, similarity)
 from .ops.modulation import exceeds_sigma
 
 __all__ = [
+    "Writer", "Reader", "ReaderDerived", "Tester", "Similarity",
     "RANK_VERSION", "InsertExtract", "Method", "Ordering", "Precision",
     "ReadConfig", "WriteConfig", "as_marks", "generate_normal", "embed",
-    "embed_verified", "extract_ranked", "rank_base", "rank_plane",
+    "embed_verified", "extract", "extract_prepared", "extract_ranked",
+    "prepare_base", "prepare_derived", "rank_base", "rank_plane",
     "similarity", "exceeds_sigma",
 ]

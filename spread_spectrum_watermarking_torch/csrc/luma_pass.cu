@@ -4,14 +4,14 @@
 // fused_dct.py, pallas_call at :295, removed in b5b6c44), but computes what
 // the JAX package's XLA code computes today: pipeline._half_pass at DEFAULT
 // (single mode) and dct2_pass(luma_diff(base, derived)) in the read tail
-// (pair mode). Rounding points follow that code, not the old kernel's
-// folded integer-luma scale:
-//   single: y = fma(b, 0.11f, fma(g, 0.59f, r * 0.30f)) with c = u8 / 255.0f
-//           (the order XLA's CPU einsum sums in, bit-equal over all colours;
-//           u8 / 255.0f comes from a 256-entry table of correctly rounded
-//           quotients, never from a reciprocal multiply)
-//   pair:   y = ((30 dR + 59 dG) + 11 dB) / 25500.0f (exact numerator,
-//           correctly rounded quotient)
+// (pair mode). Rounding points follow that code as XLA compiles it on the
+// CPU under jit, not the old kernel's folded integer-luma scale:
+//   single: y = fma(b, 0.11f, fma(g, 0.59f, r * 0.30f)) with
+//           c = u8 * f32(1/255) (the order XLA's CPU einsum sums in, and
+//           the product XLA puts in place of u8 / 255; bit-equal over all
+//           colours; c comes from a 256-entry table)
+//   pair:   y = ((30 dR + 59 dG) + 11 dB) * f32(1/25500) (exact numerator;
+//           XLA's product in place of the division)
 // then y is rounded to bf16 (RNE), contracted with the bf16 DCT-II basis in
 // f32 (tensor cores) and the sum is rounded to bf16. Every f32 op above is
 // an explicit _rn intrinsic, so nvcc can neither fuse nor split it.
@@ -40,6 +40,7 @@ using ssw::LDA;
 using ssw::LDB;
 using ssw::THREADS;
 
+constexpr float kInv255 = 0x1.010102p-8f;      // f32(1 / 255)
 constexpr float kInv25500 = 0x1.48f70cp-15f;  // f32(1 / 25500)
 
 template <bool kPair>
@@ -51,14 +52,7 @@ __device__ __forceinline__ __nv_bfloat16 luma_px(const uint8_t* p,
     const int d0 = int(p[0]) - int(q[0]);
     const int d1 = int(p[1]) - int(q[1]);
     const int d2 = int(p[2]) - int(q[2]);
-    // num / 25500 correctly rounded, without the IEEE division routine
-    // (whose slow path every zero quotient, i.e. every unchanged pixel,
-    // takes): a product by the rounded reciprocal, corrected once by its
-    // exact FMA residual. Checked against true division for all 51001
-    // possible numerators.
-    const float x = float((30 * d0 + 59 * d1) + 11 * d2);
-    const float q0 = __fmul_rn(x, kInv25500);
-    y = __fmaf_rn(__fmaf_rn(-q0, 25500.0f, x), kInv25500, q0);
+    y = __fmul_rn(float((30 * d0 + 59 * d1) + 11 * d2), kInv25500);
   } else {
     y = __fmaf_rn(lut[p[2]], 0.11f,
                   __fmaf_rn(lut[p[1]], 0.59f, __fmul_rn(lut[p[0]], 0.30f)));
@@ -117,7 +111,7 @@ luma_pass_kernel(const uint8_t* __restrict__ rgb,
   float* lut = reinterpret_cast<float*>(smem + sizeof(ssw::TileSmem));
   if (!kPair) {
     for (int i = threadIdx.x; i < 256; i += THREADS)
-      lut[i] = __fdiv_rn(float(i), 255.0f);
+      lut[i] = __fmul_rn(float(i), kInv255);
     __syncthreads();
   }
   const int n0 = blockIdx.x * BN;

@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 The system has no weights: its state is the configs, the marks and the
-Reader's cache (``rank_base``'s indices and values). These helpers turn the
+Reader's cache: ``prepare_base``'s coefficients and indices at HIGHEST,
+``rank_base``'s indices and values at the fast tier. These helpers turn the
 JAX package's versions of them into the port's, so that both packages can
 compute on the same state. They take plain Python and numpy values and
 never import ``jax``: a JAX config is read by duck typing and enum
@@ -38,6 +39,14 @@ def rank_state_from_numpy(idx, vals, device) -> tuple[torch.Tensor, torch.Tensor
     """``(idx, base_vals)`` from JAX's ``rank_base`` -> int64 and f32 tensors."""
     return (torch.from_numpy(np.asarray(idx).astype(np.int64)).to(device),
             torch.from_numpy(np.asarray(vals, dtype=np.float32)).to(device))
+
+
+def base_state_from_numpy(flat, idx, device) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """``(base_flat, idx)`` from JAX's ``prepare_base`` (the HIGHEST
+    Reader's cache) -> f32 and int64 tensors."""
+    return (torch.from_numpy(np.asarray(flat, dtype=np.float32)).to(device),
+            torch.from_numpy(np.asarray(idx).astype(np.int64)).to(device))
 
 
 def marks_from_numpy(marks, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use; load with ctypes.
 
-All of ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into one shared
-library with a plain C interface, under ``build/<hash>/`` inside the package
+All of ``csrc/*.cu`` is compiled for Hopper (``sm_90a``), one ``nvcc`` per
+source started together, and linked into one shared library with a plain C
+interface, under ``build/<hash>/`` inside the package
 (``.gitignore`` lists ``build/``). The hash covers the sources and the flags,
 so a second run loads the library it finds instead of rebuilding. Nothing
 here runs at import time: :func:`kernel` builds on its first call.
@@ -26,7 +27,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 _LIB_NAME = "libssw_kernels.so"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-Xcompiler", "-fPIC")
 
 _lib = None
 #: What the first :func:`library` call did: ``path``, ``seconds``, ``cached``.
@@ -59,18 +60,34 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Runs the commands at once; raises with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outputs = [p.communicate() for p in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+
+
 def _build(out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then the link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out.with_name(f"{p.stem}.{tag}.o") for p in srcs]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    nvcc = _nvcc()
+    try:
+        _run_all([[nvcc, *FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(srcs, objs)])
+        _run_all([[nvcc, *FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

@@ -7,8 +7,9 @@ answers that. :func:`luma_pass_reference` is its plain version: the CPU
 path, and what the kernel is held against on the card.
 
 Single mode (``base=None``) is ``pipeline._half_pass`` at DEFAULT: luma of
-``u8 / 255``, rounded to bf16, one pass. Pair mode is the read tail's first
-pass: luma of the exact integer difference ``rgb - base``.
+``u8 * f32(1/255)`` (``colorspace.luma_u8``), rounded to bf16, one pass.
+Pair mode is the read tail's first pass: luma of the exact integer
+difference ``rgb - base``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..config import Precision
 from ..ops import colorspace, dct
 from . import _build
 
@@ -31,11 +33,12 @@ def luma_pass_reference(rgb: torch.Tensor,
                         base: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`luma_pass`."""
     if base is None:
-        y = colorspace.rgb_to_luma(colorspace.u8_to_f32(rgb))
+        y = colorspace.luma_u8(rgb)
     else:
         y = colorspace.luma_diff(base, rgb)
     h, w = rgb.shape[-3], rgb.shape[-2]
-    return dct.dct2_pass(y.to(torch.bfloat16), axis=dct.shorter_axis(h, w))
+    return dct.dct2_pass(y.to(torch.bfloat16), axis=dct.shorter_axis(h, w),
+                         precision=Precision.DEFAULT, out_dtype=torch.bfloat16)
 
 
 def _check_image(x: torch.Tensor, name: str) -> None:

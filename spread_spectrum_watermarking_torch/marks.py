@@ -12,13 +12,14 @@ import numpy as np
 import torch
 
 
-def generate_normal(generator: torch.Generator, length: int,
+def generate_normal(key: torch.Generator, length: int,
                     count: int | None = None) -> torch.Tensor:
-    """f32 N(0, 1) marks on the generator's device: ``(length,)`` when
-    ``count`` is None, else ``(count, length)``."""
+    """f32 N(0, 1) marks on the device of ``key``, the ``torch.Generator``
+    that takes the place of the JAX package's ``jax.random`` key:
+    ``(length,)`` when ``count`` is None, else ``(count, length)``."""
     shape = (length,) if count is None else (count, length)
-    return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device)
+    return torch.randn(shape, generator=key, dtype=torch.float32,
+                       device=key.device)
 
 
 def as_marks(values) -> np.ndarray:

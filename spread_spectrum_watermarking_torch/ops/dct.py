@@ -1,16 +1,21 @@
-"""DCT-II bases and the DEFAULT-tier 1-D passes, in PyTorch.
+"""DCT-II bases, the 2-D transforms and the 1-D passes, in PyTorch.
 
-Port of the parts of the JAX package's ``ops/dct.py`` that the fast path
-runs. The numpy basis builders are copied verbatim, so both packages
-transform with bit-identical bases (scipy scaling, reference
-src/dct2d.rs:105-118).
+Port of the JAX package's ``ops/dct.py`` at the two ported tiers. The numpy
+basis builders are copied verbatim, so both packages transform with
+bit-identical bases (scipy scaling, reference src/dct2d.rs:105-118).
 
-Every product here takes bf16 operands, accumulates in f32 and rounds the
-sum to bf16 once: the numerics of the JAX DEFAULT dot (bf16 operands,
-``preferred_element_type=float32``, then a bf16 store). The passes are
-``torch.matmul`` on bf16 tensors with cuBLAS's reduced-precision reduction
-turned off (:func:`matmul_bf16`): by default cuBLAS may add split-K partial
-sums in bf16.
+- ``Precision.HIGHEST``: full f32. The whole-image transforms
+  :func:`dct2_2d` and :func:`idct2_2d` are kernels K6a/K6b on a CUDA
+  tensor (``..kernels.dct2d_fused``), their plain versions on the CPU. The
+  1-D passes, which the JAX package leaves to XLA, are f32 ``torch.matmul``
+  with TF32 off (:func:`matmul_f32`).
+- ``Precision.DEFAULT``: bf16 operands, f32 sums. The passes are
+  ``torch.matmul`` on bf16 tensors with cuBLAS's reduced-precision
+  reduction turned off (:func:`matmul_bf16`): by default cuBLAS may add
+  split-K partial sums in bf16.
+
+``Precision.HIGH`` and the folded transforms (``fold=True``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,13 @@ import functools
 
 import numpy as np
 import torch
+
+from ..config import Precision
+from ..kernels import dct2d_fused
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -64,9 +76,9 @@ def dct3_basis(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def basis_tensor(n: int, device: torch.device, dtype: torch.dtype,
-                 inverse: bool = False) -> torch.Tensor:
+                 inverse: bool = False, ortho: bool = False) -> torch.Tensor:
     """:func:`dct2_basis` (or :func:`dct3_basis`) as a cached tensor."""
-    c = dct3_basis(n) if inverse else dct2_basis(n)
+    c = dct3_basis(n) if inverse else dct2_basis(n, ortho)
     return torch.from_numpy(c).to(device=device, dtype=dtype)
 
 
@@ -103,44 +115,122 @@ def shorter_axis(h: int, w: int) -> int:
     return -2 if h <= w else -1
 
 
-def dct2_pass(x: torch.Tensor, *, axis: int) -> torch.Tensor:
-    """One 1-D DCT-II pass along ``axis`` (-1 or -2) of a bf16 ``x``, at the
-    DEFAULT tier (the only one ported); the result is bf16, the only form
-    the fast tier reads."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError("the DEFAULT pass takes a bf16 plane")
-    n = x.shape[axis]
-    c = basis_tensor(n, x.device, torch.bfloat16)
-    if axis in (-2, x.ndim - 2):
-        return matmul_bf16(c, x)            # out[k, w] = sum_h C[k, h] x[h, w]
-    if axis in (-1, x.ndim - 1):
-        return matmul_bf16(x, c.t())        # out[h, l] = sum_w x[h, w] C[l, w]
-    raise ValueError("axis must be one of the last two axes")
+def _require_highest(precision: Precision, fold: bool = False) -> None:
+    if fold:
+        raise _not_ported("fold=True (the folded pass, Queue 2 K1f)")
+    if precision is not Precision.HIGHEST:
+        raise _not_ported(f"the 2-D transform at precision {precision.value!r}")
 
 
-def dct2_dot_at(t: torch.Tensor, idx: torch.Tensor, *,
-                contracted_axis: int) -> torch.Tensor:
-    """Finish a 2-D DCT at flat indices ``idx`` (..., n), given one pass.
+def dct2_2d(x: torch.Tensor, *, ortho: bool = False,
+            precision: Precision = Precision.HIGHEST,
+            fold: bool = False) -> torch.Tensor:
+    """2-D DCT-II over the last two axes (..., H, W) of an f32 ``x``, scipy
+    scaling: ``(C_h @ X) @ C_w^T``, in the JAX package's association.
 
-    ``t`` (..., H, W) is the bf16 plane after :func:`dct2_pass` over
-    ``contracted_axis``. For each ``i = r*W + c`` this returns coeff[r, c]
-    as the dot of the one row (or column) of ``t`` it needs with the basis
-    row at the other coordinate: n dots of length W (or H) in f32 of exact
-    bf16 products. The JAX DEFAULT branch computes the same dots as a
-    masked matmul; only the f32 summation order differs.
+    A CUDA tensor runs kernel K6a; a CPU tensor its plain version.
     """
+    _require_highest(precision, fold)
+    return dct2d_fused.dct2_2d_fused(x, ortho=ortho)
+
+
+def idct2_2d(x: torch.Tensor, *, precision: Precision = Precision.HIGHEST,
+             fold: bool = False) -> torch.Tensor:
+    """Inverse of :func:`dct2_2d` (non-ortho): ``(D_h @ X) @ D_w^T`` times
+    ``f32(4/(W*H))``. A CUDA tensor runs kernel K6b; a CPU tensor its
+    plain version."""
+    _require_highest(precision, fold)
+    return dct2d_fused.idct2_2d_fused(x)
+
+
+def dct2_pass(x: torch.Tensor, *, axis: int, ortho: bool = False,
+              precision: Precision = Precision.HIGHEST,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One 1-D DCT-II pass along ``axis`` (-1 or -2), scipy scaling.
+
+    The basis takes ``x``'s dtype (f32 or bf16), products are exact and
+    sums f32, as in the JAX package; the result is f32, or ``out_dtype``.
+    ``Precision.DEFAULT`` takes only bf16 planes. A bf16 result is rounded
+    once from the f32 sum.
+    """
+    if precision is Precision.HIGH:
+        raise _not_ported("precision 'high'")
+    if precision is Precision.DEFAULT and x.dtype != torch.bfloat16:
+        raise TypeError("the DEFAULT pass takes a bf16 plane")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dct2_pass takes f32 or bf16, not {x.dtype}")
+    c = basis_tensor(x.shape[axis], x.device, x.dtype, ortho=ortho)
+    bf16_out = x.dtype == torch.bfloat16 and out_dtype == torch.bfloat16
+    mm = matmul_bf16 if bf16_out else matmul_f32
+    if axis in (-2, x.ndim - 2):
+        out = mm(c, x)                      # out[k, w] = sum_h C[k, h] x[h, w]
+    elif axis in (-1, x.ndim - 1):
+        out = mm(x, c.t())                  # out[h, l] = sum_w x[h, w] C[l, w]
+    else:
+        raise ValueError("axis must be one of the last two axes")
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _rows_cols(idx: torch.Tensor, w: int):
+    return torch.div(idx, w, rounding_mode="floor"), idx % w
+
+
+def _dot_rows(t: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+              ch: torch.Tensor, cw: torch.Tensor,
+              contracted_axis: int) -> torch.Tensor:
+    """coeff[r, c] from a plane after one pass: the one row (or column) of
+    ``t`` it needs against the basis row at the other coordinate; products
+    and sums in f32."""
     h, w = t.shape[-2], t.shape[-1]
-    rows = torch.div(idx, w, rounding_mode="floor")
-    cols = idx % w
     if contracted_axis in (-2, t.ndim - 2):
         # t = C_h @ Y; coeff[r, c] = t[r, :] . C_w[c, :]
         g = torch.gather(t, -2, rows[..., None].expand(*rows.shape, w))
-        cg = basis_tensor(w, t.device, torch.bfloat16)[cols]
+        cg = cw[cols]
     elif contracted_axis in (-1, t.ndim - 1):
         # t = Y @ C_w^T; coeff[r, c] = C_h[r, :] . t[:, c]
         g = torch.gather(t, -1, cols[..., None, :].expand(
             *cols.shape[:-1], h, cols.shape[-1])).transpose(-1, -2)
-        cg = basis_tensor(h, t.device, torch.bfloat16)[rows]
+        cg = ch[rows]
     else:
         raise ValueError("contracted_axis must be one of the last two axes")
     return (g.to(torch.float32) * cg.to(torch.float32)).sum(-1)
+
+
+def dct2_dot_at(t: torch.Tensor, idx: torch.Tensor, *, contracted_axis: int,
+                precision: Precision = Precision.HIGHEST) -> torch.Tensor:
+    """Finish a 2-D DCT at flat indices ``idx`` (..., n), given one pass.
+
+    ``t`` (..., H, W) is the plane after :func:`dct2_pass` over
+    ``contracted_axis``. For each ``i = r*W + c`` this returns coeff[r, c]
+    as n dots of length W (or H). At DEFAULT the operands are bf16 (exact
+    products, f32 sums; the JAX DEFAULT branch computes the same dots as a
+    masked matmul, so only the summation order differs); at HIGHEST they
+    are f32, the JAX gather-dot branch.
+    """
+    if precision is Precision.HIGH:
+        raise _not_ported("precision 'high'")
+    if t.ndim != idx.ndim + 1:
+        idx = idx.expand(*t.shape[:-2], idx.shape[-1])
+    h, w = t.shape[-2], t.shape[-1]
+    dtype = torch.bfloat16 if precision is Precision.DEFAULT else torch.float32
+    rows, cols = _rows_cols(idx, w)
+    return _dot_rows(t.to(dtype), rows, cols,
+                     basis_tensor(h, t.device, dtype),
+                     basis_tensor(w, t.device, dtype), contracted_axis)
+
+
+def dct2_coeffs_at(y: torch.Tensor, idx: torch.Tensor, *, ortho: bool = False,
+                   precision: Precision = Precision.HIGHEST) -> torch.Tensor:
+    """DCT-II coefficients of ``y`` (..., H, W) at flat indices ``idx``
+    (..., n) only: one full f32 pass over the shorter axis, then the
+    gather-dot at the n positions (the read path needs the derived image's
+    coefficients only there, reference src/algorithm.rs:543-562)."""
+    if precision is not Precision.HIGHEST:
+        raise _not_ported(f"dct2_coeffs_at at precision {precision.value!r}")
+    h, w = y.shape[-2], y.shape[-1]
+    ch = basis_tensor(h, y.device, torch.float32, ortho=ortho)
+    cw = basis_tensor(w, y.device, torch.float32, ortho=ortho)
+    rows, cols = _rows_cols(idx, w)
+    if h <= w:
+        return _dot_rows(matmul_f32(ch, y), rows, cols, ch, cw, -2)
+    return _dot_rows(matmul_f32(y, cw.t()), rows, cols, ch, cw, -1)

@@ -1,8 +1,11 @@
-"""Fast-tier coefficient ranking (generation 2), in PyTorch.
+"""Coefficient ranking, in PyTorch.
 
-Port of ``approx_top_indices`` from the JAX package's ``ops/ranking.py`` at
-``version=2``. The keys are built bit for bit as there; what differs is the
-selection. JAX takes ``lax.approx_max_k``, whose choice among equal keys at
+Port of the JAX package's ``ops/ranking.py``: :func:`top_indices`, the
+exact selection of the ``HIGHEST`` tier (equal to JAX's, index for index),
+and ``approx_top_indices`` at ``version=2``, the fast tier's.
+
+In ``approx_top_indices`` the keys are built bit for bit as in JAX; what
+differs is the selection. JAX takes ``lax.approx_max_k``, whose choice among equal keys at
 the selection boundary is unspecified (and on a TPU approximate). The port
 selects **exactly**, with the reference's tie rule: key descending, then
 flat index ascending (Rust's stable sort over ascending indices,
@@ -133,3 +136,92 @@ def approx_top_indices(
 def _from_bits16(bits: torch.Tensor) -> torch.Tensor:
     """int32 holding 16 bf16 bits -> f32 value."""
     return bits.to(torch.int16).view(torch.bfloat16).to(torch.float32)
+
+
+def ranking_metric(coeffs: torch.Tensor, ordering: Ordering) -> torch.Tensor:
+    """The per-coefficient f32 ranking metric (..., H, W), formed as the JAX
+    package forms it: ENERGY ``v*v``; ENERGY_ORTHOGONAL ``(v*s)**2`` with
+    ``s`` the f32 product of the row and column factors; LEGACY the signed
+    ``v*s`` (the preserved 2013 bug, reference src/algorithm.rs:223-232)."""
+    h, w = coeffs.shape[-2], coeffs.shape[-1]
+    if ordering == Ordering.ENERGY:
+        return coeffs * coeffs
+    scaled = coeffs * _flat_scale(h, w, coeffs.device).reshape(h, w)
+    if ordering == Ordering.ENERGY_ORTHOGONAL:
+        return scaled * scaled
+    if ordering == Ordering.LEGACY:
+        return scaled
+    raise ValueError(f"unknown ordering {ordering}")
+
+
+def _f32_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 in IEEE total order (-0.0 below +0.0), the order of
+    ``lax.top_k`` and ``jnp.max``."""
+    bits = x.view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+_NEG_INF_KEY = int(_f32_key(torch.tensor([-float("inf")]))[0])
+_NEG_ZERO_KEY = -1  # _f32_key(-0.0)
+
+
+def _zeros_tie(key: torch.Tensor) -> torch.Tensor:
+    """The same key with -0.0 raised to +0.0: the order of ``lax.sort``,
+    which compares the two as equal."""
+    return torch.where(key == _NEG_ZERO_KEY, 0, key)
+
+
+def _tiled_top(key: torch.Tensor, n: int, tile: int) -> torch.Tensor:
+    """The JAX package's ``_tiled_exact_top_k`` on total-order keys
+    (..., size): the n best tiles of ``tile`` by their max (``lax.top_k``),
+    recursively while the tiles are many, then the n best of their
+    elements by (key desc, index asc) with ``lax.sort``'s equal zeros."""
+    size = key.shape[-1]
+    pad = (-size) % tile
+    if pad:
+        key = torch.cat([key, key.new_full((*key.shape[:-1], pad),
+                                           _NEG_INF_KEY)], dim=-1)
+    t = key.shape[-1] // tile
+    tiles = key.reshape(*key.shape[:-1], t, tile)
+    maxes = tiles.amax(dim=-1)
+    if t >= n * tile:
+        tile_ids = _tiled_top(maxes, n, tile)
+    else:
+        pos = torch.arange(t, device=key.device, dtype=torch.int64)
+        tile_ids = _top_by_key(maxes, pos, n)
+    cand = torch.gather(tiles, -2, tile_ids[..., None].expand(
+        *tile_ids.shape, tile)).reshape(*tile_ids.shape[:-1], n * tile)
+    offs = torch.arange(tile, device=key.device, dtype=torch.int64)
+    cand_idx = (tile_ids[..., None] * tile + offs).reshape(cand.shape)
+    order = _top_by_key(_zeros_tie(cand), cand_idx, n)
+    return torch.gather(cand_idx, -1, order)
+
+
+def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
+                exact_only: bool = False, custom_metric=None) -> torch.Tensor:
+    """Flat indices (..., n) int64 of the n strongest coefficients of an f32
+    plane (..., H, W), DC excluded (reference src/algorithm.rs:200-210).
+
+    Exact, with the reference's order: metric descending, then index
+    ascending. Selected through int64 composites of order-preserving keys
+    (as :func:`approx_top_indices`), and, like the JAX package, by one
+    ``top_k`` over the plane when it is small (size < 4 n 32, or
+    ``exact_only``) and by its tiled selection otherwise. The two differ
+    only in how -0.0 meets +0.0, which LEGACY's signed metric can hold:
+    ``lax.top_k`` ranks +0.0 first, the tiled path's final ``lax.sort``
+    ranks them as equal; the port reproduces both.
+    """
+    if custom_metric is not None:
+        raise NotImplementedError(
+            "custom ranking metrics are not ported yet (ROADMAP.md, Queue 1 "
+            "item 4)")
+    h, w = coeffs.shape[-2], coeffs.shape[-1]
+    size = h * w
+    metric = ranking_metric(coeffs.to(torch.float32), ordering)
+    key = _f32_key(metric.reshape(*metric.shape[:-2], size))
+    key[..., 0] = _NEG_INF_KEY  # DC, as the JAX package's -inf
+    tile = 32
+    if exact_only or size < 4 * n * tile:
+        pos = torch.arange(size, device=key.device, dtype=torch.int64)
+        return _top_by_key(key, pos, n)
+    return _tiled_top(key, n, tile)

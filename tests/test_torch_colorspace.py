@@ -1,5 +1,6 @@
 """ops/colorspace of the port against the JAX package, on the same u8/f32."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +15,11 @@ def _images(seed, shape=(2, 37, 59, 3)):
 
 
 def test_luma_diff_bit_equal():
+    # Against the jitted function, as every JAX pipeline runs it: XLA puts
+    # the product by f32(1/25500) in place of the division.
     base, derived = _images(0), _images(1)
-    j = np.asarray(jc.luma_diff(jnp.asarray(base), jnp.asarray(derived)))
+    j = np.asarray(jax.jit(jc.luma_diff)(jnp.asarray(base),
+                                         jnp.asarray(derived)))
     t = tc.luma_diff(torch.from_numpy(base), torch.from_numpy(derived)).numpy()
     np.testing.assert_array_equal(t, j)
 
@@ -24,11 +28,12 @@ def test_u8_to_f32_and_rgb_to_luma_bit_equal_on_every_colour():
     v = np.arange(2 ** 24, dtype=np.uint32)
     rgb = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1)
     rgb = rgb.astype(np.uint8).reshape(256, 256, 256, 3)
-    jf = jc.u8_to_f32(jnp.asarray(rgb))
+    # Jitted, as the pipelines run: u8 / 255 becomes u8 * f32(1/255).
+    jf = jax.jit(jc.u8_to_f32)(jnp.asarray(rgb))
     tf = tc.u8_to_f32(torch.from_numpy(rgb))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     np.testing.assert_array_equal(tc.rgb_to_luma(tf).numpy(),
-                                  np.asarray(jc.rgb_to_luma(jf)))
+                                  np.asarray(jax.jit(jc.rgb_to_luma)(jf)))
 
 
 def test_f32_to_u8_bit_equal_including_half_steps():
@@ -52,3 +57,54 @@ def test_add_luma_delta_u8_bit_equal(dtype):
         getattr(torch, dtype))
     t = tc.add_luma_delta_u8(torch.from_numpy(rgb), tdy).numpy()
     np.testing.assert_array_equal(t, j)
+
+
+def test_rgb_to_yiq_bit_equal_to_jit_on_every_colour():
+    # Under jax.jit (as the pipelines run it) XLA sums each row as
+    # fma(m2, b, fma(m0, r, m1*g)); the port reproduces that order.
+    v = np.arange(2 ** 24, dtype=np.uint32)
+    rgb = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1)
+    rgb = rgb.astype(np.uint8).reshape(256, 256, 256, 3)
+    jf = np.asarray(jax.jit(jc.u8_to_f32)(jnp.asarray(rgb)))
+    j = np.asarray(jax.jit(jc.rgb_to_yiq)(jf))
+    t = tc.rgb_to_yiq(torch.from_numpy(jf)).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+
+
+def test_yiq_to_rgb_bit_equal_to_jit_on_random_triples():
+    # Two million triples over and beyond the YIQ range, so that the clamp
+    # and both signs of every term are reached.
+    rng = np.random.default_rng(6)
+    yiq = rng.uniform(-1.5, 2.5, (2_000_000, 3)).astype(np.float32)
+    j = np.asarray(jax.jit(jc.yiq_to_rgb)(jnp.asarray(yiq)))
+    t = tc.yiq_to_rgb(torch.from_numpy(yiq)).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+    assert 0.0 < np.mean((j > 0.0) & (j < 1.0)) < 1.0
+
+
+def test_fma_emulation_is_correctly_rounded_where_f64_rounds_twice():
+    # a*m + acc = 1 + 2^-24 + 2^-60 (first case) and 1 + 3*2^-24 - 2^-60
+    # (second): each lies just off an f32 midpoint, and its f64 sum lands on
+    # the midpoint, so rounding the f64 sum to f32 would round twice and go
+    # the wrong way. Both round correctly to 1 + 2^-23.
+    m = 1.0 - 2.0 ** -18
+    acc = torch.tensor([1.0 + 2.0 ** -23], dtype=torch.float32)
+    want = np.float32(1.0 + 2.0 ** -23)
+    for sign in (-1.0, 1.0):
+        a = torch.tensor([sign * 2.0 ** -24 * (1.0 + 2.0 ** -18)],
+                         dtype=torch.float32)
+        naive = (a.double() * m + acc.double()).float()
+        assert naive.item() != want
+        assert tc._fma_f32(a, m, acc).item() == want
+
+
+def test_luma_u8_table_bit_equal_to_jax_on_every_colour():
+    v = np.arange(2 ** 24, dtype=np.uint32)
+    rgb = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1)
+    rgb = rgb.astype(np.uint8).reshape(4096, 4096, 3)
+    j = np.asarray(jax.jit(lambda x: jc.rgb_to_luma(jc.u8_to_f32(x)))(
+        jnp.asarray(rgb)))
+    t = tc.luma_u8(torch.from_numpy(rgb)).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+    with pytest.raises(TypeError):
+        tc.luma_u8(torch.from_numpy(rgb[:2]).float())

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import spread_spectrum_watermarking_torch as tw
+from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 from spread_spectrum_watermarking_torch.models import pipeline as tp
@@ -42,7 +44,7 @@ def _k1_bound(rgb, base, t, r):
     """One bf16 ulp, plus the gamma_K bound of an f32 sum of K terms taken
     in another order, 2 K 2^-24 sum_k |C y|: the sums cancel near zero."""
     if base is None:
-        y = colorspace.rgb_to_luma(colorspace.u8_to_f32(rgb))
+        y = colorspace.luma_u8(rgb)
     else:
         y = colorspace.luma_diff(base, rgb)
     y = y.to(torch.bfloat16).float().abs()
@@ -95,3 +97,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         k4.embed_epilogue(rgb, a.cpu(), b)  # factor on another device
 
+
+
+def _k6_bound(x, inverse, ortho=False):
+    """2 (H + W) u |L| |X| |R|^T (one more rounding for K6b's scale): two
+    f32 sums of H and W terms taken in another order than cuBLAS's."""
+    h, w = x.shape[-2], x.shape[-1]
+    left = dct.basis_tensor(h, x.device, torch.float32, inverse, ortho).abs()
+    right = dct.basis_tensor(w, x.device, torch.float32, inverse, ortho).abs()
+    scale = k6.inverse_scale(h, w) if inverse else 1.0
+    terms = dct.matmul_f32(dct.matmul_f32(left, x.abs()), right.t())
+    return 2 * (h + w + int(inverse)) * 2.0 ** -24 * scale * terms
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_dct2d_kernels_match_plain(cuda, h, w):
+    gen = torch.Generator(device=cuda).manual_seed(h * w)
+    x = torch.randn((2, h, w), generator=gen, device=cuda)
+    cases = [(k6.dct2_2d_fused, lambda v: k6.dct2_2d_fused_reference(v),
+              False, False),
+             (lambda v: k6.dct2_2d_fused(v, ortho=True),
+              lambda v: k6.dct2_2d_fused_reference(v, True), False, True),
+             (k6.idct2_2d_fused, k6.idct2_2d_fused_reference, True, False)]
+    for kernel, plain, inverse, ortho in cases:
+        before = (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES)
+        t = kernel(x)
+        torch.cuda.synchronize()
+        after = (before[0] + (not inverse), before[1] + inverse)
+        assert (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES) == after
+        r = plain(x)
+        assert bool(((t - r).abs() <= _k6_bound(x, inverse, ortho)).all())
+
+
+def test_highest_path_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    marks = rng.standard_normal((2, 1, 200)).astype(np.float32)
+    before = k6.FORWARD_LAUNCHES
+    g_marked, g_ext = tw.embed_verified(torch.from_numpy(rgb).to(cuda),
+                                        torch.from_numpy(marks).to(cuda))
+    assert k6.FORWARD_LAUNCHES > before
+    c_marked, c_ext = tw.embed_verified(torch.from_numpy(rgb),
+                                        torch.from_numpy(marks))
+    step = (g_marked.cpu().int() - c_marked.int()).abs().max()
+    assert int(step) <= 1
+    own = [torch.diagonal(tw.similarity(e.cpu(), torch.from_numpy(marks[:, 0])))
+           for e in (g_ext, c_ext)]
+    assert bool(((own[0] - own[1]).abs() <= 0.01).all())
+    assert bool((own[0] > 6.0).all())
+    before = k6.INVERSE_LAUNCHES
+    full = tw.embed(torch.from_numpy(rgb).to(cuda),
+                    torch.from_numpy(marks).to(cuda), sparse_idct=False)
+    assert k6.INVERSE_LAUNCHES == before + 1
+    assert int((full.cpu().int() - g_marked.cpu().int()).abs().max()) <= 1
+
+
+def test_dct2d_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 37, 59), device=cuda)
+    with pytest.raises(ValueError):
+        k6.dct2_2d_fused(x.double())
+    with pytest.raises(ValueError):
+        k6.dct2_2d_fused(x.transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        k6.idct2_2d_fused(x[:0])  # empty

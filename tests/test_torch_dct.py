@@ -1,4 +1,5 @@
-"""ops/dct of the port against the JAX package, DEFAULT tier."""
+"""ops/dct of the port against the JAX package, DEFAULT tier (the HIGHEST
+tier is in ``test_torch_dct_highest.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,6 +8,7 @@ import torch
 
 from spread_spectrum_watermarking_tpu.config import Precision as JPrecision
 from spread_spectrum_watermarking_tpu.ops import dct as jd
+from spread_spectrum_watermarking_torch.config import Precision
 from spread_spectrum_watermarking_torch.ops import dct as td
 
 
@@ -37,7 +39,8 @@ def test_dct2_pass_default_within_one_bf16_ulp(axis):
     x = _plane(0, 37, 59)
     j = np.asarray(jd.dct2_pass(x, axis=axis, precision=JPrecision.DEFAULT,
                                 out_dtype=jnp.bfloat16).astype(jnp.float32))
-    t = td.dct2_pass(_to_torch(x), axis=axis).float().numpy()
+    t = td.dct2_pass(_to_torch(x), axis=axis, precision=Precision.DEFAULT,
+                     out_dtype=torch.bfloat16).float().numpy()
     # One bf16 rounding of an f32 sum taken in another order.
     assert np.all(np.abs(j - t) <= bf16_ulp(np.maximum(np.abs(j), np.abs(t))))
 
@@ -51,7 +54,8 @@ def test_dct2_dot_at_default_matches(axis):
                                   contracted_axis=axis,
                                   precision=JPrecision.DEFAULT))
     t = td.dct2_dot_at(_to_torch(x), torch.from_numpy(idx),
-                       contracted_axis=axis).numpy()
+                       contracted_axis=axis,
+                       precision=Precision.DEFAULT).numpy()
     # Exact bf16 products, f32 sums in another order: 1e-5 of max|t|.
     scale = float(np.max(np.abs(np.asarray(x.astype(jnp.float32)))))
     np.testing.assert_allclose(t, j, rtol=0, atol=1e-5 * scale)
@@ -60,6 +64,6 @@ def test_dct2_dot_at_default_matches(axis):
 def test_dct2_pass_takes_only_bf16_planes_and_the_last_two_axes():
     x = _to_torch(_plane(3, 8, 8))
     with pytest.raises(TypeError):
-        td.dct2_pass(x.float(), axis=-1)
+        td.dct2_pass(x.float(), axis=-1, precision=Precision.DEFAULT)
     with pytest.raises(ValueError):
-        td.dct2_pass(x, axis=0)
+        td.dct2_pass(x, axis=0, precision=Precision.DEFAULT)

@@ -111,32 +111,26 @@ def test_cpu_tensors_take_the_plain_path():
     assert _build._lib is None  # nothing was built or loaded
 
 
-def test_pair_mode_division_is_correctly_rounded():
-    """K1's pair mode divides the integer numerator by 25500 as a product by
-    f32(1/25500) corrected by one FMA residual (csrc/luma_pass.cu). Emulate
-    that in exact arithmetic for every possible numerator and require the
-    IEEE quotient the plain version computes."""
-    from fractions import Fraction
+def test_kernel_reciprocals_are_the_ones_xla_multiplies_by():
+    """K1 multiplies by f32(1/255) (its u8 table) and f32(1/25500) (pair
+    mode), the constants XLA puts in place of the JAX code's divisions
+    under jit; the port's colorspace uses the same ones."""
+    import pathlib
+    import re
 
-    x = np.arange(-25500, 25501).astype(np.float32)
-    r = np.float32(1.0) / np.float32(25500.0)
-    # Products of two f32 values (24 x 24 bits) and the residual are exact
-    # in f64, so each of these roundings to f32 happens once.
-    q0 = (x.astype(np.float64) * np.float64(r)).astype(np.float32)
-    res = (x.astype(np.float64)
-           - q0.astype(np.float64) * 25500.0).astype(np.float32)
-    # The last FMA, res * r + q0, may need more than f64's 53 bits: round
-    # it exactly through fractions.
-    rf = Fraction(float(r))
+    import jax
 
-    def fma_rn(a, b):
-        exact = Fraction(float(a)) * rf + Fraction(float(b))
-        near = np.float32(float(exact))
-        cands = (np.nextafter(near, np.float32(-np.inf)), near,
-                 np.nextafter(near, np.float32(np.inf)))
-        return min(cands, key=lambda c: (abs(Fraction(float(c)) - exact),
-                                         int(np.float32(c).view(np.uint32)) & 1))
+    from spread_spectrum_watermarking_torch.ops import colorspace as tc
 
-    got = np.array([fma_rn(a, b) for a, b in zip(res, q0)], np.float32)
-    want = x / np.float32(25500.0)
-    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    src = (pathlib.Path(k1.__file__).parent.parent / "csrc" / "luma_pass.cu")
+    consts = dict(re.findall(r"constexpr float (kInv\d+) = (0x[0-9a-fp.+-]+)f;",
+                             src.read_text()))
+    inv255 = np.float32(float.fromhex(consts["kInv255"]))
+    inv25500 = np.float32(float.fromhex(consts["kInv25500"]))
+    assert (float(inv255), float(inv25500)) == (tc._INV255, tc._INV25500)
+    u8 = np.arange(256, dtype=np.uint8)
+    np.testing.assert_array_equal(np.asarray(jax.jit(jc.u8_to_f32)(u8)),
+                                  u8.astype(np.float32) * inv255)
+    num = np.arange(-25500, 25501).astype(np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(lambda x: x / 25500.0)(num)), num * inv25500)

@@ -120,15 +120,25 @@ def test_other_methods_round_trip(method):
 
 
 def test_unported_tiers_and_options_raise():
+    # HIGHEST is ported (tests/test_torch_pipeline_highest.py); HIGH is not,
+    # nor are float images, float output and the full inverse at DEFAULT.
     rgb, marks = _inputs(37, 59)
     base, m = torch.from_numpy(rgb), torch.from_numpy(marks)
-    for precision in (tw.Precision.HIGH, tw.Precision.HIGHEST):
-        with pytest.raises(NotImplementedError):
-            tw.embed_verified(base, m, tw.WriteConfig(precision=precision))
-        with pytest.raises(NotImplementedError):
-            tw.rank_plane(base, precision)
+    high = tw.Precision.HIGH
+    with pytest.raises(NotImplementedError):
+        tw.embed_verified(base, m, tw.WriteConfig(precision=high))
+    with pytest.raises(NotImplementedError):
+        tw.embed(base, m, tw.WriteConfig(precision=high))
+    with pytest.raises(NotImplementedError):
+        tw.extract(base, base, N, tw.ReadConfig(precision=high))
+    with pytest.raises(NotImplementedError):
+        tw.rank_plane(base, high)
     with pytest.raises(NotImplementedError):
         tw.embed(base, m, TW, sparse_idct=False)
+    with pytest.raises(NotImplementedError):
+        tw.embed(base, m, TW, quantize=False)
+    with pytest.raises(NotImplementedError):
+        tw.embed_verified(base, m, TW, quantize=False)
     with pytest.raises(NotImplementedError):
         tw.embed(base.float() / 255.0, m, TW)
     custom = tw.WriteConfig(precision=tw.Precision.DEFAULT,
