@@ -10,8 +10,9 @@ exits non-zero and prints no result.
 Phases, one line of output each, any failure exits non-zero:
 
 1. device: the card, its power limit, versions, the kernel build;
-2. K1 (luma + DCT pass) against its plain version, both modes, three
-   geometries and the main path's 1080p batch 48, and both times there;
+2. K1 (luma + DCT pass) against its plain version: its DEFAULT single and
+   pair modes and its HIGH mode (bf16x3), at four geometries and the main
+   path's 1080p batch 48, with every mode's time and its plain version's;
 3. K4 (embed epilogue) against its plain version at 1080p, n = 1000,
    batches 4 and 48, and both times at batch 48;
 4. K6a/K6b (the 2-D DCT and its inverse, f32) against their plain versions
@@ -23,13 +24,19 @@ Phases, one line of output each, any failure exits non-zero:
    CPU run of the same code on a small input, a stage breakdown,
    images/s on random u8 chained from call to call as ``bench.py`` does,
    and the device's idle share under ``torch.profiler``;
-6. the HIGHEST path (every config's default) at the same shape:
+6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, its pair
+   mode and K4 launched in the one call, K6 not;
+7. the fast tiers' plain-op branches on 4 x 1080p: the full inverse at
+   DEFAULT and HIGH read back by the fast Reader, float input at DEFAULT,
+   ``prepare_base`` at HIGH;
+8. the HIGHEST path (every config's default) at 1080p batch 48:
    ``embed_verified`` with K6a's launch count from that call, detection,
    ``extract`` bit-equal to its extraction and ``extract_prepared`` within
    0.01 sigma of it, ``embed(sparse_idct=False)`` with K6b's launch count,
    the CPU agreement check, Writer/Reader/Tester on one image, a stage
    breakdown, images/s and the idle share;
-7. 4K, batch 8: one ``embed_verified`` on 1/f textures, and images/s.
+9. 4K, batch 8: one ``embed_verified`` on 1/f textures at DEFAULT and one
+   at HIGH, and images/s of each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -91,20 +98,23 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def abs_term_sum(rgb, base):
+def abs_term_sum(rgb, base, precision):
     """sum_k |C[., k]| |y[k, .]| for each output of K1: the scale of its
-    f32 accumulation error."""
+    f32 accumulation error (y the bf16 luma, or at HIGH the f32 luma that
+    the kernel splits)."""
     import torch
 
+    from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.ops import colorspace, dct
 
     if base is None:
         y = colorspace.luma_u8(rgb)
     else:
         y = colorspace.luma_diff(base, rgb)
-    y = y.to(torch.bfloat16).float().abs()
+    dtype = torch.float32 if precision is Precision.HIGH else torch.bfloat16
+    y = y.to(dtype).float().abs()
     h, w = rgb.shape[1:3]
-    c = dct.basis_tensor(min(h, w), rgb.device, torch.bfloat16).float().abs()
+    c = dct.basis_tensor(min(h, w), rgb.device, dtype).float().abs()
     return dct.matmul_f32(c, y) if h <= w else dct.matmul_f32(y, c.t())
 
 
@@ -141,60 +151,76 @@ def phase_device():
         build_cached=_build.BUILD_INFO["cached"])
 
 
-def _compare_k1(rgb, base) -> float:
-    """K1 on ``rgb`` (pair mode with ``base``) against its plain version;
-    logs the comparison, raises outside the tolerance, returns max |err|."""
+def _compare_k1(rgb, base, precision) -> float:
+    """K1 on ``rgb`` (pair mode with ``base``; high mode at HIGH) against
+    its plain version; logs the comparison, raises outside the tolerance,
+    returns max |err|. The bound's sum has K terms, or 3K at HIGH (three
+    products per k)."""
     import torch
 
+    from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
     b, h, w = rgb.shape[:3]
-    t = k1.luma_pass(rgb, base).float()
+    t = k1.luma_pass(rgb, base, precision).float()
     torch.cuda.synchronize()
-    r = k1.luma_pass_reference(rgb, base).float()
+    r = k1.luma_pass_reference(rgb, base, precision).float()
     d = (t - r).abs()
     ulp = bf16_ulp(torch.maximum(t.abs(), r.abs()))
-    order = F32_U * abs_term_sum(rgb, base)
+    order = F32_U * abs_term_sum(rgb, base, precision)
     used = float(((d - ulp).clamp_min(0) / order).max())
-    name = "single" if base is None else "pair"
+    terms = min(h, w) * (3 if precision is Precision.HIGH else 1)
+    name = ("high" if precision is Precision.HIGH
+            else "single" if base is None else "pair")
     log("k1", shape=[b, h, w], mode=name,
         share_differing=float((d > 0).float().mean()),
         share_over_1ulp=float((d > ulp).float().mean()),
         max_abs_err=float(d.max()), max_excess_in_u_sum_abs=used,
-        bound_in_u_sum_abs=2 * min(h, w))
-    if not used <= 2 * min(h, w):
+        bound_in_u_sum_abs=2 * terms, share_of_bound_used=used / (2 * terms))
+    if not used <= 2 * terms:
         raise AssertionError(f"K1 {name} {b}x{h}x{w}: outside tolerance")
     return float(d.max())
 
 
-def phase_k1() -> dict:
+def phase_k1() -> tuple[dict, dict]:
+    """K1's DEFAULT modes and its HIGH mode against their plain versions:
+    the records of ``luma_pass`` and ``luma_pass_high``."""
     import torch
 
+    from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
+    default, high = Precision.DEFAULT, Precision.HIGH
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
-    for b, h, w in [(4, 1080, 1920), (4, 1920, 1080), (2, 444, 640)]:
+    worst = {"default": 0.0, "high": 0.0}
+    for b, h, w in [(4, 1080, 1920), (4, 1920, 1080), (2, 444, 640),
+                    (2, 37, 59)]:
         rgb = textures(10 + h, b, h, w)
         base = torch.randint(0, 256, rgb.shape, generator=gen, device="cuda",
                              dtype=torch.uint8)
         for mode in (None, base):
-            worst = max(worst, _compare_k1(rgb, mode))
-    # The main path's shape, on random pixels; then both times.
+            worst["default"] = max(worst["default"],
+                                   _compare_k1(rgb, mode, default))
+        worst["high"] = max(worst["high"], _compare_k1(rgb, None, high))
+    # The main path's shape, on random pixels; then the times.
     rgb = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                         device="cuda", dtype=torch.uint8)
     base = torch.randint(0, 256, rgb.shape, generator=gen, device="cuda",
                          dtype=torch.uint8)
     times = {}
-    for name, mode in (("single", None), ("pair", base)):
-        worst = max(worst, _compare_k1(rgb, mode))
-        times[name] = (time_ms(lambda: k1.luma_pass(rgb, mode), 5),
-                       time_ms(lambda: k1.luma_pass_reference(rgb, mode), 5))
+    for name, mode, p in (("single", None, default), ("pair", base, default),
+                          ("high", None, high)):
+        key = "high" if p is high else "default"
+        worst[key] = max(worst[key], _compare_k1(rgb, mode, p))
+        times[name] = (time_ms(lambda: k1.luma_pass(rgb, mode, p), 5),
+                       time_ms(lambda: k1.luma_pass_reference(rgb, mode, p), 5))
     log("k1_time", shape=[48, 1080, 1920],
-        single_ms=times["single"][0], single_plain_ms=times["single"][1],
-        pair_ms=times["pair"][0], pair_plain_ms=times["pair"][1])
-    return {"max_abs_err": worst, "ms": times["single"][0],
-            "plain_ms": times["single"][1]}
+        **{f"{name}_{kind}": t[i] for name, t in times.items()
+           for i, kind in enumerate(("ms", "plain_ms"))})
+    return ({"max_abs_err": worst["default"], "ms": times["single"][0],
+             "plain_ms": times["single"][1]},
+            {"max_abs_err": worst["high"], "ms": times["high"][0],
+             "plain_ms": times["high"][1]})
 
 
 def _epilogue_inputs(b: int, h: int, w: int):
@@ -367,7 +393,9 @@ def _images_per_sec(rgb, marks, cfg, runs: int) -> list[float]:
 def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
     """torch.profiler over ``calls`` chained calls after a warm-up: the
     window on the host clock, the device's kernel time in it, the idle share
-    and the five kernels that take the most time."""
+    and the five kernels that take the most time, each as [name, ms,
+    launches recorded] (a kernel the profiler failed to record shows as a
+    launch short of ``calls``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -381,16 +409,18 @@ def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
             imgs = _chained_step(imgs, marks, cfg)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
+    by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    kernel_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    kernel_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return {"calls": calls, "window_ms": window_ms, "kernel_ms": kernel_ms,
             "idle_share": (1.0 - kernel_ms / window_ms) if by_name else None,
-            "top_kernels_ms": [[name[:60], ms] for name, ms in top]}
+            "top_kernels_ms": [[name.replace("(anonymous namespace)::", "")[:72],
+                                ms, n] for name, (ms, n) in top]}
 
 
 def _stage_timer(stages: dict):
@@ -411,7 +441,9 @@ def _stage_timer(stages: dict):
 
 
 def _stage_breakdown(rgb, marks, cfg) -> dict:
-    """ms per stage of one embed_verified call, CUDA events around each."""
+    """ms per stage of one fast-tier embed_verified call, CUDA events
+    around each. The read tail runs at DEFAULT at both fast tiers."""
+    from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels.embed_epilogue import (
         embed_epilogue)
     from spread_spectrum_watermarking_torch.kernels.luma_pass import luma_pass
@@ -424,8 +456,10 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
     box = {}
     run = _stage_timer(stages)
 
+    first = "k1_high_first_pass" if cfg.precision is Precision.HIGH \
+        else "k1_first_pass"
     for _ in range(2):  # the first round warms up; the second is kept
-        box["t"] = run("k1_first_pass", lambda: luma_pass(rgb))
+        box["t"] = run(first, lambda: luma_pass(rgb, None, cfg.precision))
         box["plane"] = run("second_pass", lambda: tp._second_pass(box["t"], ax))
         box["iv"] = run("select", lambda: ranking.approx_top_indices(
             box["plane"], N, cfg.ordering))
@@ -439,43 +473,70 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
         box["td"] = run("k1_pair_pass",
                         lambda: luma_pass(box["marked"], rgb))
         run("read_dot_at", lambda: dct.dct2_dot_at(
-            box["td"], idx, contracted_axis=ax, precision=cfg.precision))
+            box["td"], idx, contracted_axis=ax, precision=Precision.DEFAULT))
     return stages
 
 
-def phase_main_path(k1_rec: dict, k4_rec: dict) -> None:
-    import torch
-
-    import spread_spectrum_watermarking_torch as wm
+def _kernel_counts() -> dict:
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
     from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
-    cfg = wm.WriteConfig(precision=wm.Precision.DEFAULT)
-    rcfg = wm.ReadConfig(precision=wm.Precision.DEFAULT)
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    rgb = textures(30, 48, 1080, 1920)
+    return {"k1": k1.LAUNCHES, "k1_high": k1.HIGH_LAUNCHES,
+            "k4": k4.LAUNCHES, "k6a": k6.FORWARD_LAUNCHES,
+            "k6b": k6.INVERSE_LAUNCHES}
+
+
+def _zero_kernel_counts() -> None:
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
+    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+
+    k1.LAUNCHES = k1.HIGH_LAUNCHES = k4.LAUNCHES = 0
+    k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
+
+
+def phase_fast_path(precision, recs: dict) -> None:
+    """One fast tier's path at 1080p batch 48: ``embed_verified`` with the
+    launch counts of that one call (DEFAULT: K1 and K4; HIGH: K1's high
+    mode, its pair mode and K4; never K6), then the checks, the stages,
+    the rate and the profile. ``recs``: the kernel records to fill."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+
+    high = precision is wm.Precision.HIGH
+    tag = "high_" if high else ""
+    cfg = wm.WriteConfig(precision=precision)
+    rcfg = wm.ReadConfig(precision=precision)
+    gen = torch.Generator(device="cuda").manual_seed(8 if high else 3)
+    rgb = textures(80 if high else 30, 48, 1080, 1920)
     marks = torch.randn((48, 1, N), generator=gen, device="cuda")
     torch.cuda.synchronize()
 
-    k1.LAUNCHES = 0
-    k4.LAUNCHES = 0
+    _zero_kernel_counts()
     marked, ext = wm.embed_verified(rgb, marks, cfg)
     torch.cuda.synchronize()
-    k1_rec["launches"], k4_rec["launches"] = k1.LAUNCHES, k4.LAUNCHES
-    if k1.LAUNCHES == 0 or k4.LAUNCHES == 0:
-        raise AssertionError(f"main path skipped a kernel: K1 {k1.LAUNCHES}, "
-                             f"K4 {k4.LAUNCHES}")
+    counts = _kernel_counts()
+    if high:
+        recs["luma_pass_high"]["launches"] = counts["k1_high"]
+        ran = counts["k1_high"] > 0 and counts["k1"] > 0 and counts["k4"] > 0
+    else:
+        recs["luma_pass"]["launches"] = counts["k1"]
+        recs["embed_epilogue"]["launches"] = counts["k4"]
+        ran = counts["k1"] > 0 and counts["k4"] > 0 and counts["k1_high"] == 0
+    if not ran or counts["k6a"] or counts["k6b"]:
+        raise AssertionError(f"{precision.value} path launched {counts}")
 
-    det = _check_detection("1080p", ext, marks, gen)
+    det = _check_detection(f"1080p {precision.value}", ext, marks, gen)
     idx, vals = wm.rank_base(rgb, N, rcfg)
     ext2 = wm.extract_ranked(rgb, marked, idx, vals, rcfg)
     if not torch.equal(ext, ext2):
         raise AssertionError("detect path differs from embed_verified")
     if marked.shape != rgb.shape or marked.dtype != torch.uint8:
         raise AssertionError("marked output has the wrong shape or type")
-    log("main_path", shape=[48, 1080, 1920], n=N,
-        launches_k1=k1_rec["launches"], launches_k4=k4_rec["launches"],
-        detect_bit_equal=True,
+    log("high_path" if high else "main_path", shape=[48, 1080, 1920], n=N,
+        launches=counts, detect_bit_equal=True,
         share_pixels_changed=float((marked != rgb).float().mean()), **det)
 
     # The same code on the CPU (plain kernel versions), small input.
@@ -488,30 +549,68 @@ def phase_main_path(k1_rec: dict, k4_rec: dict) -> None:
     recall = np.mean([len(set(a.tolist()) & set(b.tolist())) / 200
                       for a, b in zip(g_idx.cpu(), c_idx)])
     step = int((g_marked.cpu().int() - c_marked.int()).abs().max())
-    sim_gap = float((torch.diagonal(wm.similarity(g_ext.cpu(), small_marks[:, 0].cpu()))
-                     - torch.diagonal(wm.similarity(c_ext, small_marks[:, 0].cpu()))
-                     ).abs().max())
-    log("cpu_agreement", shape=[2, 96, 128], n=200, idx_recall=recall,
+    sm = small_marks[:, 0].cpu()
+    sim_gap = float((torch.diagonal(wm.similarity(g_ext.cpu(), sm))
+                     - torch.diagonal(wm.similarity(c_ext, sm))).abs().max())
+    log(f"{tag}cpu_agreement", shape=[2, 96, 128], n=200, idx_recall=recall,
         max_u8_step=step, max_sim_gap_sigma=sim_gap)
     if recall < 0.99 or step > 1 or sim_gap > 0.1:
         raise AssertionError("card and CPU runs of the port disagree")
 
-    log("stages_ms", shape=[48, 1080, 1920], n=N,
+    log(f"{tag}stages_ms", shape=[48, 1080, 1920], n=N,
         **_stage_breakdown(rgb, marks[0], cfg))
 
     del marked, ext, ext2, rgb
     rand = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
     rates = _images_per_sec(rand, marks, cfg, runs=5)
-    log("main_path_rate", shape=[48, 1080, 1920], n=N,
-        images_per_sec_median=statistics.median(rates), runs=rates)
-    log("profile", shape=[48, 1080, 1920], n=N,
+    log("high_rate" if high else "main_path_rate", shape=[48, 1080, 1920],
+        n=N, images_per_sec_median=statistics.median(rates), runs=rates)
+    log(f"{tag}profile", shape=[48, 1080, 1920], n=N,
         **_device_profile(rand, marks, cfg))
+
+
+def phase_fast_options() -> None:
+    """The fast tiers' other branches on 4 x 1080p, which run as plain ops
+    where the TPU kernels took u8 only: ``embed(sparse_idct=False)`` at
+    DEFAULT and HIGH read back by the fast Reader, ``embed_verified`` of
+    float images at DEFAULT, ``prepare_base`` at HIGH."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rgb = textures(90, 4, 1080, 1920)
+    marks = torch.randn((4, 1, N), generator=gen, device="cuda")
+    out = {}
+    for p in (wm.Precision.DEFAULT, wm.Precision.HIGH):
+        rcfg = wm.ReadConfig(precision=p)
+        full = wm.embed(rgb, marks, wm.WriteConfig(precision=p),
+                        sparse_idct=False)
+        idx, vals = wm.rank_base(rgb, N, rcfg)
+        ext = wm.extract_ranked(rgb, full, idx, vals, rcfg)
+        det = _check_detection(f"full inverse {p.value}", ext, marks, gen)
+        out[f"full_inverse_{p.value}_min_self_sigma"] = det["min_self_sigma"]
+        del full
+    cfg = wm.WriteConfig(precision=wm.Precision.DEFAULT)
+    marked, ext = wm.embed_verified(rgb.float() / 255.0, marks, cfg)
+    det = _check_detection("float input", ext, marks, gen)
+    out["float_input_default_min_self_sigma"] = det["min_self_sigma"]
+    flat, idx = wm.prepare_base(rgb, N, wm.ReadConfig(precision=wm.Precision.HIGH))
+    if flat.shape != (4, 1080 * 1920) or idx.shape != (4, N):
+        raise AssertionError("prepare_base at HIGH: wrong shapes")
+    if not (bool(flat.isfinite().all())
+            and all(len(set(i.tolist())) == N for i in idx.cpu())):
+        raise AssertionError("prepare_base at HIGH: bad coefficients or indices")
+    log("fast_options", shape=[4, 1080, 1920], n=N,
+        float_input_marked_dtype=str(marked.dtype), **out)
 
 
 def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
     """ms per stage of one HIGHEST embed_verified call (its sparse embed,
-    then its read), CUDA events around each."""
+    then its read), CUDA events around each; beside them, the epilogue with
+    the sum rounded once (``add_and_quantize_one_rounding``), the form the
+    CPU path takes and the card does not (``colorspace.add_luma_delta_f32``)."""
     import torch
 
     from spread_spectrum_watermarking_torch.models import pipeline as tp
@@ -524,8 +623,7 @@ def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
     run = _stage_timer(stages)
     ie = cfg.insertion
     for _ in range(2):  # the first round warms up; the second is kept
-        rgbf = run("to_f32", lambda: tp._to_f32(rgb))
-        y = run("luma", lambda: tp._luma(rgb))
+        y = run("luma", lambda: colorspace.luma(rgb))
         box["c"] = run("k6a_forward", lambda: dct.dct2_2d(y))
         box["idx"] = run("select", lambda: ranking.top_indices(
             box["c"], N, cfg.ordering))
@@ -538,9 +636,15 @@ def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
         box["dy"] = run("sparse_delta", lambda: tp._sparse_idct_delta(
             box["new"] - box["orig"], idx, h, w, cfg.precision))
         box["m"] = run("add_and_quantize", lambda: colorspace.f32_to_u8(
-            torch.clamp(rgbf + box["dy"][..., None], 0.0, 1.0)))
-        yd = run("derived_luma", lambda: tp._luma(box["m"]))
+            colorspace.add_luma_delta_f32(rgb, box["dy"])))
+        yd = run("derived_luma", lambda: colorspace.luma(box["m"]))
         run("coeffs_at", lambda: dct.dct2_coeffs_at(yd, idx))
+    # Apart from the call's stages, so that its f64 temporaries do not
+    # change what the caching allocator holds for them.
+    for _ in range(2):
+        run("add_and_quantize_one_rounding", lambda: colorspace.f32_to_u8(
+            torch.clamp(colorspace._fma_f32(rgb, colorspace._INV255,
+                                            box["dy"][..., None]), 0.0, 1.0)))
     return stages
 
 
@@ -558,8 +662,7 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
     marks = torch.randn((48, 1, N), generator=gen, device="cuda")
     torch.cuda.synchronize()
 
-    k1.LAUNCHES = k4.LAUNCHES = 0
-    k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
+    _zero_kernel_counts()
     marked, ext = wm.embed_verified(rgb, marks, cfg)
     torch.cuda.synchronize()
     k6a_rec["launches"] = k6.FORWARD_LAUNCHES
@@ -582,7 +685,8 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
         raise AssertionError(f"extract_prepared is {gap} sigma off")
     log("highest_path", shape=[48, 1080, 1920], n=N,
         launches_k6a=k6a_rec["launches"],
-        launches_others=[k1.LAUNCHES, k4.LAUNCHES, k6.INVERSE_LAUNCHES],
+        launches_others=[k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES,
+                         k6.INVERSE_LAUNCHES],
         extract_bit_equal=True, prepared_max_gap_sigma=gap,
         share_pixels_changed=float((marked != rgb).float().mean()), **det)
 
@@ -650,19 +754,26 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
 
 
 def phase_4k() -> None:
+    """4K, batch 8: one embed_verified at DEFAULT and one at HIGH (K1's
+    contraction is 2160 long), each with its rate."""
     import torch
 
     import spread_spectrum_watermarking_torch as wm
 
-    cfg = wm.WriteConfig(precision=wm.Precision.DEFAULT)
     gen = torch.Generator(device="cuda").manual_seed(4)
     rgb = textures(50, 8, 2160, 3840)
     marks = torch.randn((8, 1, N), generator=gen, device="cuda")
-    marked, ext = wm.embed_verified(rgb, marks, cfg)
-    det = _check_detection("4K", ext, marks, gen)
-    rates = _images_per_sec(rgb, marks, cfg, runs=3)
-    log("4k", shape=[8, 2160, 3840], n=N, **det,
-        images_per_sec_median=statistics.median(rates), runs=rates)
+    for p in (wm.Precision.DEFAULT, wm.Precision.HIGH):
+        cfg = wm.WriteConfig(precision=p)
+        _zero_kernel_counts()
+        marked, ext = wm.embed_verified(rgb, marks, cfg)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        det = _check_detection(f"4K {p.value}", ext, marks, gen)
+        rates = _images_per_sec(rgb, marks, cfg, runs=3)
+        log("4k" if p is wm.Precision.DEFAULT else "4k_high",
+            shape=[8, 2160, 3840], n=N, launches=counts, **det,
+            images_per_sec_median=statistics.median(rates), runs=rates)
 
 
 def main() -> int:
@@ -676,7 +787,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        import spread_spectrum_watermarking_torch  # noqa: F401
+        import spread_spectrum_watermarking_torch as wm
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -692,7 +803,11 @@ def main() -> int:
                         "embed_epilogue.cu",
               "replaces": "spread_spectrum_watermarking_tpu/ops/fused_dct.py:446"
                           " (git 6b7c109^)"}
-    k1_rec.update(phase_k1())
+    k1h_rec = dict(k1_rec, name="luma_pass_high",
+                   replaces=k1_rec["replaces"] + ", n_dots=3")
+    k1_default, k1_high = phase_k1()
+    k1_rec.update(k1_default)
+    k1h_rec.update(k1_high)
     torch.cuda.empty_cache()
     k4_rec.update(phase_k4())
     torch.cuda.empty_cache()
@@ -706,7 +821,12 @@ def main() -> int:
     k6a_rec.update(k6a_time)
     k6b_rec.update(k6b_time)
     torch.cuda.empty_cache()
-    phase_main_path(k1_rec, k4_rec)
+    recs = {r["name"]: r for r in (k1_rec, k1h_rec, k4_rec)}
+    phase_fast_path(wm.Precision.DEFAULT, recs)
+    torch.cuda.empty_cache()
+    phase_fast_path(wm.Precision.HIGH, recs)
+    torch.cuda.empty_cache()
+    phase_fast_options()
     torch.cuda.empty_cache()
     phase_highest(k6a_rec, k6b_rec)
     torch.cuda.empty_cache()
@@ -715,7 +835,8 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
-                                  (k1_rec, k4_rec, k6a_rec, k6b_rec)]}))
+                                  (k1_rec, k1h_rec, k4_rec, k6a_rec,
+                                   k6b_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,12 +2,12 @@
 
 The port of ``spread_spectrum_watermarking_tpu`` (the JAX reference, which
 stays beside it). This package imports ``torch`` and numpy, never ``jax``.
-It covers the reference-exact tier (``Precision.HIGHEST``, every config's
-default: embed with the sparse or the full inverse, extract, the prepared
-base/derived pair) and the fast tier (``Precision.DEFAULT``, rank
-generation 2: embed, embed-and-verify, the reader-cached rank/extract
-pair), and the Writer/Reader/Tester wrappers. Importing it builds and loads
-no kernel.
+It covers the three precision tiers: the reference-exact
+``Precision.HIGHEST`` (every config's default) and the fast ``HIGH`` and
+``DEFAULT`` tiers (rank generation 2): embed with the sparse or the full
+inverse, embed-and-verify, extract, the reader-cached rank/extract pair,
+the prepared base/derived pair, u8 or float images, and the
+Writer/Reader/Tester wrappers. Importing it builds and loads no kernel.
 """
 
 from .api import Reader, ReaderDerived, Similarity, Tester, Writer

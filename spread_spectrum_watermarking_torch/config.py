@@ -48,9 +48,9 @@ class Ordering(str, enum.Enum):
 class Precision(str, enum.Enum):
     """Precision tier of the DCT passes.
 
-    DEFAULT   = bf16 operands, f32 accumulation (the tier the port runs)
-    HIGH      = 3-pass bf16 (not ported yet)
-    HIGHEST   = full f32 (not ported yet)
+    DEFAULT   = bf16 operands, f32 accumulation (the fastest tier)
+    HIGH      = bf16x3: hi/lo bf16 parts, three products (near-f32)
+    HIGHEST   = full f32 (the reference-exact tier, every config's default)
     """
 
     DEFAULT = "default"

@@ -4,12 +4,15 @@
 // two shared-memory buffers, so the loads of k-step i+1 are issued before
 // the products of k-step i.
 //
-// Each kernel supplies a loader that writes the A tile (BM x BK, row-major)
-// and the B tile (BK x BN, row-major) of one k-step into shared memory, with
-// zeros outside the matrix, so ragged edges need no other masking. The
-// accumulator lands in shared memory as f32 for the kernel's own epilogue.
-// There are no atomics: every output element is summed by one warp in a
-// fixed order, so results repeat bit for bit from run to run.
+// Each kernel supplies a loader that writes the A tiles (BM x BK, row-major)
+// and the B tiles (BK x BN, row-major) of one k-step into a Stage, with
+// zeros outside the matrix, so ragged edges need no other masking. A stage
+// holds one part of each operand (one bf16 product), or two (kParts = 2:
+// the hi and lo bf16 parts of the HIGH tier's bf16x3 split, whose products
+// hi*hi + hi*lo + lo*hi go into the same accumulator; lo*lo is dropped).
+// The accumulator lands in shared memory as f32 for the kernel's own
+// epilogue. There are no atomics: every output element is summed by one
+// warp in a fixed order, so results repeat bit for bit from run to run.
 #pragma once
 
 #include <cstdint>
@@ -27,17 +30,22 @@ constexpr int LDA = BK + 8;    // bf16 pitches: multiples of 8 for wmma
 constexpr int LDB = BN + 8;
 constexpr int LDC = BN + 4;    // f32 pitch: a multiple of 4
 
-struct Stage {
-  __nv_bfloat16 a[BM * LDA];
-  __nv_bfloat16 b[BK * LDB];
+template <int kParts>
+struct StageT {
+  __nv_bfloat16 a[kParts][BM * LDA];
+  __nv_bfloat16 b[kParts][BK * LDB];
 };
 
-// 103 KB: above the 48 KB of static shared memory, so kernels take it as
-// dynamic shared memory (set_smem_limit below).
-struct __align__(128) TileSmem {
-  Stage st[2];
+// Above the 48 KB of static shared memory (103 KB with one part, 140 KB
+// with two), so kernels take it as dynamic shared memory (set_smem_limit).
+template <int kParts>
+struct __align__(128) TileSmemT {
+  StageT<kParts> st[2];
   float c[BM * LDC];
 };
+
+using Stage = StageT<1>;
+using TileSmem = TileSmemT<1>;
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -76,10 +84,13 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst,
 }
 
 // Runs the k loop over [0, kdim) and leaves the f32 tile in s.c.
-template <class Loader>
-__device__ __forceinline__ void tile_product(TileSmem& s, int kdim,
+// load(StageT<kParts>& st, int k0) fills st with the tiles of k-step k0.
+template <int kParts, class Loader>
+__device__ __forceinline__ void tile_product(TileSmemT<kParts>& s, int kdim,
                                              const Loader& load) {
   using namespace nvcuda;
+  // Products per k-step: a*b, or hi*hi, hi*lo and lo*hi.
+  constexpr int kProducts = kParts == 1 ? 1 : 3;
   const int warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 32;
   const int wn = (warp % 2) * 64;
@@ -89,30 +100,35 @@ __device__ __forceinline__ void tile_product(TileSmem& s, int kdim,
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  if (kdim > 0) load(s.st[0].a, s.st[0].b, 0);
+  if (kdim > 0) load(s.st[0], 0);
   __syncthreads();
   int cur = 0;
   for (int k0 = 0; k0 < kdim; k0 += BK) {
     // The buffer written here was last read before the previous barrier.
-    if (k0 + BK < kdim) load(s.st[cur ^ 1].a, s.st[cur ^ 1].b, k0 + BK);
-    const Stage& st = s.st[cur];
+    if (k0 + BK < kdim) load(s.st[cur ^ 1], k0 + BK);
+    const StageT<kParts>& st = s.st[cur];
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], st.a + (wm + 16 * i) * LDA + kk, LDA);
+      for (int p = 0; p < kProducts; ++p) {
+        const __nv_bfloat16* a = st.a[p == 2 ? 1 : 0];
+        const __nv_bfloat16* b = st.b[p == 1 ? 1 : 0];
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], st.b + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], a + (wm + 16 * i) * LDA + kk, LDA);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+          wmma::load_matrix_sync(fb[j], b + kk * LDB + wn + 16 * j, LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
     }
     __syncthreads();
     cur ^= 1;

@@ -2,11 +2,13 @@
 
 The system has no weights: its state is the configs, the marks and the
 Reader's cache: ``prepare_base``'s coefficients and indices at HIGHEST,
-``rank_base``'s indices and values at the fast tier. These helpers turn the
-JAX package's versions of them into the port's, so that both packages can
-compute on the same state. They take plain Python and numpy values and
-never import ``jax``: a JAX config is read by duck typing and enum
-``.value``, and JAX arrays are passed in as ``numpy.asarray(...)``.
+``rank_base``'s indices and values at the fast tiers. These helpers turn
+the JAX package's versions of them into the port's, so that both packages
+can compute on the same state; a ``lax.Precision``, which the JAX
+package's ``similarity`` takes, maps to the port's tier. They take plain
+Python and numpy values and never import ``jax``: a JAX config is read by
+duck typing and enum ``.value`` or ``.name``, and JAX arrays are passed in
+as ``numpy.asarray(...)``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ def config_from_reference(cfg) -> WriteConfig | ReadConfig:
     if hasattr(cfg, "insertion"):
         return WriteConfig(insertion=_insert_extract(cfg.insertion), **common)
     return ReadConfig(extraction=_insert_extract(cfg.extraction), **common)
+
+
+def precision_from_reference(precision) -> Precision:
+    """The port's tier for a JAX ``lax.Precision`` (or the JAX package's own
+    ``Precision``), by member name: DEFAULT, HIGH or HIGHEST."""
+    return Precision[precision.name]
 
 
 def rank_state_from_numpy(idx, vals, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,8 @@
-"""End-to-end watermarking pipelines at the ``DEFAULT`` and ``HIGHEST`` tiers.
+"""End-to-end watermarking pipelines at the three precision tiers.
 
 Port of the JAX package's ``models/pipeline.py``. Functions keep the JAX
 names, parameters and defaults and take ``(B, H, W, 3)`` or ``(H, W, 3)``
-tensors; the device is the input's.
+tensors, u8 or float RGB in [0, 1]; the device is the input's.
 
 ``Precision.HIGHEST``, the default of every config, is the reference-exact
 tier: the full f32 transform (:func:`_forward`, kernel K6a on the card),
@@ -11,27 +11,34 @@ of the n changed coefficients (:func:`_sparse_idct_delta`, an f32 product)
 or, with ``sparse_idct=False``, the full inverse transform of the changed
 plane (kernel K6b). Reads transform the derived image only at the n ranked
 indices (``dct.dct2_coeffs_at``), or in full with ``sparse_derived=False``
-(:func:`prepare_derived`). u8 and float RGB in, u8 or float RGB out.
+(:func:`prepare_derived`).
 
-``Precision.DEFAULT`` is the fast tier, on u8 images only, with the kernel
-that carries each stage on the card:
+``Precision.HIGH`` and ``Precision.DEFAULT`` are the fast tiers. They
+differ only in the base image's first pass; on a u8 image each stage runs
+on the card as follows:
 
-1. prologue, luma + first DCT pass (:func:`_half_pass`): kernel K1;
+1. prologue, luma + first DCT pass (:func:`_half_pass`): kernel K1, in its
+   single mode (bf16 pass) at DEFAULT and its high mode (bf16x3 pass) at
+   HIGH;
 2. second pass to the bf16 rank plane (:func:`_second_pass`): a bf16
-   ``torch.matmul`` with f32 sums, as the JAX package leaves it to XLA;
+   ``torch.matmul`` with f32 sums at both tiers, as the JAX package leaves
+   it to XLA;
 3. exact top-n on sign-in-LSB keys (``ops.ranking``);
 4. modulation of the n values (``ops.modulation``);
-5. epilogue, sparse inverse DCT added to the u8 image: kernel K4;
+5. epilogue, sparse bf16 inverse DCT added to the u8 image: kernel K4;
 6. read tail (:func:`_extract_fast_tail`): K1's pair mode, then a
-   gather-dot at the n indices.
+   gather-dot at the n indices, at DEFAULT for both tiers.
 
-At both tiers Writer and Reader agree bit for bit because both rank the
-base image through the same deterministic code (no atomics on the path).
+Float images, float output (``quantize=False``), the full inverse
+(``sparse_idct=False``) and the prepared base/derived pair run the JAX
+package's XLA forms as plain PyTorch ops at the fast tiers: the TPU kernels
+took u8 images only. At both fast tiers Writer and Reader agree bit for bit
+because both rank the base image through the same deterministic code (no
+atomics on the path).
 
 Not ported yet, and raising ``NotImplementedError`` rather than taking
-another path (ROADMAP.md, Queue 1 item 6): ``Precision.HIGH``; at DEFAULT
-float RGB input and output (``quantize=False``) and ``sparse_idct=False``;
-custom insert, extract and ordering callables; rank generation 1.
+another path (ROADMAP.md): custom insert, extract and ordering callables;
+rank generation 1; the folded transforms (``dct.dct2_2d(fold=True)``).
 """
 
 from __future__ import annotations
@@ -52,54 +59,45 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md, Queue 1 item 6)")
 
 
-def _require_fast(precision: Precision) -> None:
-    if precision is not Precision.DEFAULT:
-        raise _not_ported(f"precision {precision.value!r}")
-
-
-def _require_highest(precision: Precision, what: str) -> None:
-    if precision is not Precision.HIGHEST:
-        raise _not_ported(f"{what} at precision {precision.value!r}")
-
-
-def _require_u8(rgb: torch.Tensor) -> None:
-    if rgb.dtype != torch.uint8:
-        raise _not_ported(f"{rgb.dtype} input at precision 'default' "
-                          f"(uint8 only)")
-
-
 def _to_f32(rgb: torch.Tensor) -> torch.Tensor:
     if not rgb.is_floating_point():
         return colorspace.u8_to_f32(rgb)
     return rgb.to(torch.float32)
 
 
-def _luma(rgb: torch.Tensor) -> torch.Tensor:
-    """The f32 luma plane of u8 or float RGB (the u8 table for u8 images:
-    the same bits as from the float path)."""
-    if rgb.dtype == torch.uint8:
-        return colorspace.luma_u8(rgb)
-    return colorspace.rgb_to_luma(_to_f32(rgb))
-
-
 def _forward(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
-    """RGB (..., H, W, 3) -> the luma plane's f32 DCT (..., H, W): the
-    HIGHEST prologue of Writer and Reader (kernel K6a on the card)."""
-    return dct.dct2_2d(_luma(rgb), precision=precision)
+    """RGB (..., H, W, 3) -> the luma plane's f32 DCT (..., H, W) at the
+    tier: the prologue of the HIGHEST Writer and Reader (kernel K6a on the
+    card) and of ``prepare_base``/``prepare_derived`` at every tier."""
+    return dct.dct2_2d(colorspace.luma(rgb), precision=precision)
 
 
 def _half_pass(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
-    """Luma + one DCT-II pass along the shorter axis, bf16: K1."""
-    _require_fast(precision)
-    return luma_pass(rgb)
+    """Luma + one DCT-II pass along the shorter axis.
+
+    A u8 image at DEFAULT or HIGH runs kernel K1 (bf16 out). Otherwise the
+    JAX package's XLA form runs as plain ops: the f32 luma, then the tier's
+    pass, bf16 at DEFAULT (on the bf16 luma) and f32 at HIGH and HIGHEST.
+    The TPU kernel never took float input (its ``supported()`` required
+    uint8), so float images are a dtype route with no kernel behind it.
+    """
+    if rgb.dtype == torch.uint8 and precision is not Precision.HIGHEST:
+        return luma_pass(rgb, precision=precision)
+    ax = dct.shorter_axis(rgb.shape[-3], rgb.shape[-2])
+    y = colorspace.luma(rgb)
+    if precision is Precision.DEFAULT:
+        return dct.dct2_pass(y.to(torch.bfloat16), axis=ax,
+                             precision=Precision.DEFAULT,
+                             out_dtype=torch.bfloat16)
+    return dct.dct2_pass(y, axis=ax, precision=precision)
 
 
 def _second_pass(t: torch.Tensor, ax: int) -> torch.Tensor:
-    """The second pass over the other axis: the bf16 plane the fast tier
-    ranks on."""
+    """The second pass over the other axis, on the bf16-rounded first pass:
+    the bf16 plane both fast tiers rank on."""
     other = -1 if ax == -2 else -2
-    return dct.dct2_pass(t, axis=other, precision=Precision.DEFAULT,
-                         out_dtype=torch.bfloat16)
+    return dct.dct2_pass(t.to(torch.bfloat16), axis=other,
+                         precision=Precision.DEFAULT, out_dtype=torch.bfloat16)
 
 
 def _rank_from_half(t: torch.Tensor, n: int, ordering, custom_metric,
@@ -115,7 +113,6 @@ def _rank_and_values_fast(rgb: torch.Tensor, n: int, ordering, precision,
                           custom_metric=None, rank_version: int = 2
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ranked flat indices (B, n) int64 and value estimates (B, n) f32."""
-    _require_u8(rgb)
     ax = dct.shorter_axis(rgb.shape[-3], rgb.shape[-2])
     t = _half_pass(rgb, precision)
     return _rank_from_half(t, n, ordering, custom_metric, ax, rank_version)
@@ -145,13 +142,12 @@ def _sparse_idct_delta(delta: torch.Tensor, idx: torch.Tensor, h: int,
                        w: int, precision: Precision = Precision.DEFAULT
                        ) -> torch.Tensor:
     """dY (B, H, W) of a sparse coefficient update, the plain way: bf16 at
-    DEFAULT; at HIGHEST the f32 (H, n) @ (n, W) product of the factors,
-    then times ``f32(4/(W*H))``, as the JAX package orders it."""
+    DEFAULT; otherwise the (H, n) @ (n, W) product of the factors at the
+    tier, then times ``f32(4/(W*H))``, as the JAX package orders it."""
     if precision is Precision.DEFAULT:
         return delta_plane(*_sparse_idct_factors(delta, idx, h, w))
-    _require_highest(precision, "the sparse inverse")
     a, b = _sparse_factors_f32(delta, idx, h, w)
-    return dct.matmul_f32(a.transpose(-1, -2), b) * inverse_scale(h, w)
+    return dct.matmul(a.transpose(-1, -2), b, precision) * inverse_scale(h, w)
 
 
 def _broadcast_marks(marks: torch.Tensor, batch: int) -> torch.Tensor:
@@ -161,22 +157,62 @@ def _broadcast_marks(marks: torch.Tensor, batch: int) -> torch.Tensor:
     return marks
 
 
-def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor,
-                config: WriteConfig) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    """Rank, modulate and write through K4: ``(marked, idx, original)``."""
+def _modulated(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fast prologue and the modulation: ``(idx, original, new)``."""
     if config.custom_insert is not None:
         raise _not_ported("custom_insert")
-    n = marks.shape[-1]
-    h, w = rgb.shape[-3], rgb.shape[-2]
     idx, original = _rank_and_values_fast(
-        rgb, n, config.ordering, config.precision, config.custom_ordering,
-        config.rank_version)
+        rgb, marks.shape[-1], config.ordering, config.precision,
+        config.custom_ordering, config.rank_version)
     new_values = modulation.embed_marks(
         original, _broadcast_marks(marks, rgb.shape[0]),
         config.insertion.method, config.insertion.alpha)
-    a, b = _sparse_idct_factors(new_values - original, idx, h, w)
-    return embed_epilogue(rgb, a, b), idx, original
+    return idx, original, new_values
+
+
+def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig,
+                quantize: bool = True) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """Rank, modulate and add the sparse bf16 inverse: ``(marked, idx,
+    original)``. A u8 image quantized to u8 takes kernel K4; float images
+    and float output add the bf16 dY in f32 (the JAX package's XLA form)."""
+    h, w = rgb.shape[-3], rgb.shape[-2]
+    idx, original, new_values = _modulated(rgb, marks, config)
+    delta = new_values - original
+    if quantize and rgb.dtype == torch.uint8:
+        a, b = _sparse_idct_factors(delta, idx, h, w)
+        return embed_epilogue(rgb, a, b), idx, original
+    out = colorspace.add_luma_delta_f32(
+        rgb, _sparse_idct_delta(delta, idx, h, w, Precision.DEFAULT))
+    return (colorspace.f32_to_u8(out) if quantize else out), idx, original
+
+
+def _with_luma(yiq: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """RGB from the base's YIQ with Y replaced by ``y``: the reference's
+    Writer::result (src/algorithm.rs:361-374)."""
+    return colorspace.yiq_to_rgb(
+        torch.stack([y, yiq[..., 1], yiq[..., 2]], dim=-1))
+
+
+def _embed_fast_full_inverse(rgb: torch.Tensor, marks: torch.Tensor,
+                             config: WriteConfig,
+                             quantize: bool) -> torch.Tensor:
+    """``embed(sparse_idct=False)`` at the fast tiers (JAX
+    ``pipeline.py:370-407``). It ranks through the fast prologue, since the
+    fast Reader ranks there, then scatter-ADDS the same delta into the full
+    transform of the YIQ image's Y at the tier (add, not set: the plane's
+    value differs from the prologue's estimate, and detection recovers the
+    delta against the estimate), and inverts the whole plane."""
+    idx, original, new_values = _modulated(rgb, marks, config)
+    yiq = colorspace.rgb_to_yiq(_to_f32(rgb))
+    b, h, w = yiq.shape[:3]
+    coeffs = dct.dct2_2d(yiq[..., 0], precision=config.precision)
+    flat = coeffs.reshape(b, h * w).scatter_add(-1, idx,
+                                                new_values - original)
+    y = dct.idct2_2d(flat.reshape(b, h, w), precision=config.precision)
+    out = _with_luma(yiq, y)
+    return colorspace.f32_to_u8(out) if quantize else out
 
 
 def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
@@ -187,7 +223,6 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
     what a Reader re-derives from the same base."""
     if config.custom_insert is not None:
         raise _not_ported("custom_insert")
-    rgbf = _to_f32(rgb)
     coeffs = _forward(rgb, Precision.HIGHEST)
     b, h, w = coeffs.shape
     idx = ranking.top_indices(coeffs, marks.shape[-1], config.ordering,
@@ -198,18 +233,15 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
         original, _broadcast_marks(marks, b), config.insertion.method,
         config.insertion.alpha)
     if sparse_idct:
-        # Only Y changes, and the Y column of YIQ->RGB is [1, 1, 1]
-        # (reference src/yiq.rs:161-165), so RGB' = clamp(RGB + dY).
         dy = _sparse_idct_delta(new_values - original, idx, h, w,
                                 Precision.HIGHEST)
-        out = torch.clamp(rgbf + dy[..., None], 0.0, 1.0)
+        out = colorspace.add_luma_delta_f32(rgb, dy)
     else:
         # The reference's Writer::result: the full inverse of the changed
-        # plane, with the base's I and Q (src/algorithm.rs:361-374).
-        yiq = colorspace.rgb_to_yiq(rgbf)
-        y = dct.idct2_2d(flat.scatter(-1, idx, new_values).reshape(b, h, w))
-        out = colorspace.yiq_to_rgb(
-            torch.stack([y, yiq[..., 1], yiq[..., 2]], dim=-1))
+        # plane, with the base's I and Q.
+        yiq = colorspace.rgb_to_yiq(_to_f32(rgb))
+        out = _with_luma(yiq, dct.idct2_2d(
+            flat.scatter(-1, idx, new_values).reshape(b, h, w)))
     if quantize:
         out = colorspace.f32_to_u8(out)
     return out, idx, original
@@ -219,24 +251,28 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
                        idx: torch.Tensor, base_vals: torch.Tensor,
                        config: ReadConfig,
                        sparse_second: bool = True) -> torch.Tensor:
-    """Delta-exact read given the base's ranked indices and values.
+    """Delta-exact read given the base's ranked indices and values, at
+    DEFAULT for both fast tiers, as in the JAX package.
 
-    The derived image is never transformed on its own: K1's pair mode
-    transforms ``luma(derived - base)`` from the exact integer difference,
-    and the second pass runs only at the n indices (in full, then gathered,
-    with ``sparse_second=False``).
+    The derived image is never transformed on its own: the first pass runs
+    on ``luma(derived) - luma(base)`` (K1's pair mode from the exact integer
+    difference for u8 pairs; otherwise the difference of the f32 lumas and
+    a plain bf16 pass), and the second pass only at the n indices (in full,
+    then gathered, with ``sparse_second=False``).
     """
     if config.custom_extract is not None:
         raise _not_ported("custom_extract")
-    _require_fast(config.precision)
-    _require_u8(base)
-    _require_u8(derived)
     if base.shape != derived.shape:
         raise ValueError(f"base {tuple(base.shape)} and derived "
                          f"{tuple(derived.shape)} differ in shape")
     h, w = base.shape[-3], base.shape[-2]
     ax = dct.shorter_axis(h, w)
-    td = luma_pass(derived, base)
+    if base.dtype == torch.uint8 and derived.dtype == torch.uint8:
+        td = luma_pass(derived, base)
+    else:
+        td = dct.dct2_pass(colorspace.luma_diff(base, derived).to(
+            torch.bfloat16), axis=ax, precision=Precision.DEFAULT,
+            out_dtype=torch.bfloat16)
     if sparse_second:
         num = dct.dct2_dot_at(td, idx, contracted_axis=ax,
                               precision=Precision.DEFAULT)
@@ -275,13 +311,13 @@ def embed(rgb: torch.Tensor, marks: torch.Tensor,
           sparse_idct: bool = True) -> torch.Tensor:
     """Embed watermark(s) into images of ``rgb``'s shape.
 
-    ``rgb``: u8, or (HIGHEST only) float RGB in [0, 1]. ``marks``: (N,) one
-    mark, (M, N) M marks shared across the batch, or (B, M, N) per image;
-    several marks add their deltas (reference: src/algorithm.rs:382-410).
-    ``quantize``: u8 output (the reference's ``into_rgb8``), else f32
-    (HIGHEST only). ``sparse_idct``: invert only the n changed coefficients
-    (the default); False runs the reference's full inverse transform
-    (HIGHEST only).
+    ``rgb``: u8, or float RGB in [0, 1]. ``marks``: (N,) one mark, (M, N)
+    M marks shared across the batch, or (B, M, N) per image; several marks
+    add their deltas (reference: src/algorithm.rs:382-410). ``quantize``:
+    u8 output (the reference's ``into_rgb8``), else f32. ``sparse_idct``:
+    invert only the n changed coefficients (the default); False runs the
+    reference's full inverse transform of the changed plane (at the fast
+    tiers after ranking through the fast prologue, which the Reader uses).
     """
     single = rgb.ndim == 3
     if single:
@@ -291,13 +327,10 @@ def embed(rgb: torch.Tensor, marks: torch.Tensor,
     if config.precision is Precision.HIGHEST:
         marked, _, _ = _embed_highest(rgb, marks, config, quantize,
                                       sparse_idct)
+    elif sparse_idct:
+        marked, _, _ = _embed_fast(rgb, marks, config, quantize)
     else:
-        _require_fast(config.precision)
-        if not sparse_idct:
-            raise _not_ported("sparse_idct=False at precision 'default'")
-        if not quantize:
-            raise _not_ported("quantize=False at precision 'default'")
-        marked, _, _ = _embed_fast(rgb, marks, config)
+        marked = _embed_fast_full_inverse(rgb, marks, config, quantize)
     return marked[0] if single else marked
 
 
@@ -307,7 +340,7 @@ def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed, then extract from the (quantized) output with the base's
     ranking: ``(marked, extracted)``, what :func:`extract` (HIGHEST) or
-    :func:`rank_base` + :func:`extract_ranked` (DEFAULT) would read from
+    :func:`rank_base` + :func:`extract_ranked` (fast tiers) would read from
     ``marked``. The base's transform and ranking are computed once."""
     if config.custom_insert is not None:
         raise ValueError("embed_verified cannot invert a custom_insert; "
@@ -321,13 +354,10 @@ def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
     if config.precision is Precision.HIGHEST:
         marked, idx, base_vals = _embed_highest(rgb, marks, config, quantize,
                                                 True)
-        derived_vals = dct.dct2_coeffs_at(_luma(marked), idx)
+        derived_vals = dct.dct2_coeffs_at(colorspace.luma(marked), idx)
         ext = _extract_values(rconfig, base_vals, derived_vals)
     else:
-        _require_fast(config.precision)
-        if not quantize:
-            raise _not_ported("quantize=False at precision 'default'")
-        marked, idx, original = _embed_fast(rgb, marks, config)
+        marked, idx, original = _embed_fast(rgb, marks, config, quantize)
         ext = _extract_fast_tail(rgb, marked, idx, original, rconfig)
     if single:
         return marked[0], ext[0]
@@ -336,10 +366,10 @@ def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
 
 def prepare_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The base image's flat f32 coefficients and its top-n indices:
-    ``(flat, idx)``, the HIGHEST Reader's cache (reference ``Reader::base``,
-    src/algorithm.rs:462-498)."""
-    _require_highest(config.precision, "prepare_base")
+    """The base image's flat f32 coefficients at the tier and its exact
+    top-n indices: ``(flat, idx)``, the HIGHEST Reader's cache (reference
+    ``Reader::base``, src/algorithm.rs:462-498). The JAX package allows it
+    at every tier; at the fast tiers prefer :func:`rank_base`."""
     single = rgb.ndim == 3
     if single:
         rgb = rgb[None]
@@ -354,9 +384,8 @@ def prepare_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
 
 def prepare_derived(rgb: torch.Tensor, config: ReadConfig = ReadConfig()
                     ) -> torch.Tensor:
-    """A derived image's flat f32 coefficients (reference
+    """A derived image's flat f32 coefficients at the tier (reference
     ``Reader::derived``, src/algorithm.rs:469-480)."""
-    _require_highest(config.precision, "prepare_derived")
     single = rgb.ndim == 3
     if single:
         rgb = rgb[None]
@@ -377,8 +406,8 @@ def extract_prepared(base_flat: torch.Tensor, idx: torch.Tensor,
 
 def rank_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The base image's ranked ``(indices, values)`` on the fast tier, the
-    DEFAULT Reader's cache (reference ``Reader::base``,
+    """The base image's ranked ``(indices, values)`` through the fast
+    prologue, the fast tiers' Reader cache (reference ``Reader::base``,
     src/algorithm.rs:462-498)."""
     single = rgb.ndim == 3
     if single:
@@ -394,15 +423,13 @@ def rank_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
 def rank_plane(rgb: torch.Tensor,
                precision: Precision = Precision.HIGHEST) -> torch.Tensor:
     """The (H, W) f32 coefficient plane the given tier ranks on: the exact
-    f32 transform at HIGHEST, the bf16 two-pass plane at DEFAULT."""
+    f32 transform at HIGHEST, the bf16 two-pass plane at DEFAULT and HIGH."""
     single = rgb.ndim == 3
     if single:
         rgb = rgb[None]
     if precision is Precision.HIGHEST:
         out = _forward(rgb, precision)
     else:
-        _require_fast(precision)
-        _require_u8(rgb)
         ax = dct.shorter_axis(rgb.shape[-3], rgb.shape[-2])
         out = _second_pass(_half_pass(rgb, precision), ax).to(torch.float32)
     return out[0] if single else out
@@ -425,7 +452,7 @@ def _extract_fused(base: torch.Tensor, derived: torch.Tensor, n: int,
                    ) -> torch.Tensor:
     """Batched read: the base's full transform and ranking, the derived
     image's coefficients at the n indices only (HIGHEST), or the fast
-    tier's delta-exact read (DEFAULT)."""
+    tiers' delta-exact read."""
     if config.precision is not Precision.HIGHEST:
         idx, base_vals = _rank_and_values_fast(
             base, n, config.ordering, config.precision,
@@ -436,7 +463,7 @@ def _extract_fused(base: torch.Tensor, derived: torch.Tensor, n: int,
     idx = ranking.top_indices(coeffs, n, config.ordering,
                               custom_metric=config.custom_ordering)
     base_vals = torch.gather(coeffs.reshape(coeffs.shape[0], -1), -1, idx)
-    derived_vals = dct.dct2_coeffs_at(_luma(derived), idx)
+    derived_vals = dct.dct2_coeffs_at(colorspace.luma(derived), idx)
     return _extract_values(config, base_vals, derived_vals)
 
 

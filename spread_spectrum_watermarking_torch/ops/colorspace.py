@@ -113,15 +113,26 @@ def yiq_to_rgb(yiq: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.stack(rows, dim=-1), 0.0, 1.0)
 
 
-def luma_diff(base: torch.Tensor, derived: torch.Tensor) -> torch.Tensor:
-    """Luma of (derived - base) for u8 pairs: (..., 3) -> (...) f32.
+def luma(rgb: torch.Tensor) -> torch.Tensor:
+    """The f32 luma plane of u8 or float RGB: :func:`rgb_to_luma` of the f32
+    image (u8 through :func:`u8_to_f32`, by the table of :func:`luma_u8`,
+    which gives the same bits)."""
+    if rgb.dtype == torch.uint8:
+        return luma_u8(rgb)
+    return rgb_to_luma(rgb.to(torch.float32))
 
-    The numerator ``30 dR + 59 dG + 11 dB`` is an exact integer, so the only
-    rounding is the JAX code's ``/ 25500``, which XLA compiles to the
-    product by ``f32(1/25500)`` -- bit-identical to the JAX version.
+
+def luma_diff(base: torch.Tensor, derived: torch.Tensor) -> torch.Tensor:
+    """Luma of (derived - base): (..., 3) pairs -> (...) f32.
+
+    For u8 pairs the numerator ``30 dR + 59 dG + 11 dB`` is an exact
+    integer, so the only rounding is the JAX code's ``/ 25500``, which XLA
+    compiles to the product by ``f32(1/25500)`` -- bit-identical to the JAX
+    version. Otherwise, as in the JAX package, the difference of the two
+    f32 lumas (u8 images through :func:`u8_to_f32`).
     """
     if base.dtype != torch.uint8 or derived.dtype != torch.uint8:
-        raise TypeError("luma_diff takes uint8 images")
+        return luma(derived) - luma(base)
     d = derived.to(torch.int32) - base.to(torch.int32)
     num = (30 * d[..., 0] + 59 * d[..., 1]) + 11 * d[..., 2]
     return num.to(torch.float32) * _INV25500
@@ -138,6 +149,30 @@ def f32_to_u8(rgb_f32: torch.Tensor) -> torch.Tensor:
     """f32 -> u8 via ``floor(clamp(x, 0, 1) * 255 + 0.5)`` (round half up)."""
     x = torch.clamp(rgb_f32, 0.0, 1.0) * 255.0
     return torch.floor(x + 0.5).to(torch.uint8)
+
+
+def add_luma_delta_f32(rgb: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """RGB (..., 3), u8 or float, + luma delta (...) -> f32 RGB in [0, 1].
+
+    ``clip(u8_to_f32(rgb) + dy, 0, 1)``, as the jitted JAX epilogues compute
+    it: for u8 images XLA contracts ``u8 * f32(1/255) + dy`` into one FMA,
+    so the sum is rounded once (:func:`_fma_f32`). Float images add in f32.
+    Y is the only modified plane and the Y column of YIQ->RGB is [1, 1, 1]
+    (reference src/yiq.rs:161-165).
+
+    On a CUDA tensor a u8 image takes the product and the sum rounded
+    apart: the f64 emulation of the FMA costs several times the whole
+    stage there (PERF.md), and the two forms differ by one u8 step in a
+    few subpixels per million.
+    """
+    d = dy.to(torch.float32)[..., None]
+    if rgb.dtype == torch.uint8 and rgb.device.type == "cpu":
+        out = _fma_f32(rgb, _INV255, d)
+    elif rgb.dtype == torch.uint8:
+        out = u8_to_f32(rgb) + d
+    else:
+        out = rgb.to(torch.float32) + d
+    return torch.clamp(out, 0.0, 1.0)
 
 
 def add_luma_delta_u8(rgb_u8: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,26 @@
 """DCT-II bases, the 2-D transforms and the 1-D passes, in PyTorch.
 
-Port of the JAX package's ``ops/dct.py`` at the two ported tiers. The numpy
+Port of the JAX package's ``ops/dct.py`` at its three tiers. The numpy
 basis builders are copied verbatim, so both packages transform with
-bit-identical bases (scipy scaling, reference src/dct2d.rs:105-118).
+bit-identical bases (scipy scaling, reference src/dct2d.rs:105-118). Every
+product goes through :func:`matmul`, which says what each tier computes:
 
-- ``Precision.HIGHEST``: full f32. The whole-image transforms
-  :func:`dct2_2d` and :func:`idct2_2d` are kernels K6a/K6b on a CUDA
-  tensor (``..kernels.dct2d_fused``), their plain versions on the CPU. The
-  1-D passes, which the JAX package leaves to XLA, are f32 ``torch.matmul``
-  with TF32 off (:func:`matmul_f32`).
-- ``Precision.DEFAULT``: bf16 operands, f32 sums. The passes are
+- ``Precision.HIGHEST``: full f32, TF32 off (:func:`matmul_f32`). The
+  whole-image transforms :func:`dct2_2d` and :func:`idct2_2d` are kernels
+  K6a/K6b on a CUDA tensor (``..kernels.dct2d_fused``), their plain
+  versions on the CPU.
+- ``Precision.HIGH``: bf16x3 (:func:`matmul_bf16x3`), the split the TPU's
+  matrix unit runs for this tier: each f32 operand becomes a bf16 ``hi``
+  and a bf16 ``lo`` part, and ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` is
+  summed in f32.
+- ``Precision.DEFAULT``: bf16 operands, f32 sums. A bf16 result is
   ``torch.matmul`` on bf16 tensors with cuBLAS's reduced-precision
   reduction turned off (:func:`matmul_bf16`): by default cuBLAS may add
   split-K partial sums in bf16.
 
-``Precision.HIGH`` and the folded transforms (``fold=True``) raise
-``NotImplementedError``.
+At DEFAULT and HIGH the 2-D transforms are these plain products on every
+device, as the JAX package leaves them to XLA. ``fold=True`` (the folded
+transforms, ROADMAP Queue 2 K1f) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -109,17 +114,57 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a, b)
 
 
+def _bf16_values(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (RNE), held in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16x3 split of ``x``: ``hi = bf16(x)`` and ``lo = bf16(x - hi)``,
+    both held in f32 (the subtraction is exact)."""
+    x = x.to(torch.float32)
+    hi = _bf16_values(x)
+    return hi, _bf16_values(x - hi)
+
+
+def _bf16x3_operands(a: torch.Tensor, b: torch.Tensor, a_dim: int,
+                     b_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``[a_hi, a_hi, a_lo]`` and ``[b_hi, b_lo, b_hi]`` (:func:`split_bf16`),
+    concatenated along the contracted dims: contracting them is the sum
+    ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` as one sum of 3K terms.
+    ``a_lo b_lo`` is dropped, as the TPU drops it."""
+    a_hi, a_lo = split_bf16(a)
+    b_hi, b_lo = split_bf16(b)
+    return (torch.cat([a_hi, a_hi, a_lo], dim=a_dim),
+            torch.cat([b_hi, b_lo, b_hi], dim=b_dim))
+
+
+def matmul_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` at the HIGH tier, f32 out: the three products of the
+    bf16 parts (:func:`_bf16x3_operands`), exact, summed in f32."""
+    return matmul_f32(*_bf16x3_operands(a, b, -1, -2))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           precision: Precision) -> torch.Tensor:
+    """``a @ b`` in f32 at a tier: f32 (HIGHEST), bf16x3 (HIGH), or bf16
+    operands with f32 sums (DEFAULT)."""
+    if precision is Precision.HIGHEST:
+        return matmul_f32(a, b)
+    if precision is Precision.HIGH:
+        return matmul_bf16x3(a, b)
+    return matmul_f32(_bf16_values(a), _bf16_values(b))
+
+
 def shorter_axis(h: int, w: int) -> int:
     """The axis the first pass contracts: the shorter one, the cheaper full
     pass (the JAX package's ``pipeline._shorter_axis``)."""
     return -2 if h <= w else -1
 
 
-def _require_highest(precision: Precision, fold: bool = False) -> None:
+def _refuse_fold(fold: bool) -> None:
     if fold:
         raise _not_ported("fold=True (the folded pass, Queue 2 K1f)")
-    if precision is not Precision.HIGHEST:
-        raise _not_ported(f"the 2-D transform at precision {precision.value!r}")
 
 
 def dct2_2d(x: torch.Tensor, *, ortho: bool = False,
@@ -128,19 +173,32 @@ def dct2_2d(x: torch.Tensor, *, ortho: bool = False,
     """2-D DCT-II over the last two axes (..., H, W) of an f32 ``x``, scipy
     scaling: ``(C_h @ X) @ C_w^T``, in the JAX package's association.
 
-    A CUDA tensor runs kernel K6a; a CPU tensor its plain version.
+    HIGHEST: a CUDA tensor runs kernel K6a, a CPU tensor its plain version.
+    DEFAULT and HIGH: two :func:`matmul` products at the tier (at DEFAULT
+    the f32 intermediate is rounded to bf16 as the second operand).
     """
-    _require_highest(precision, fold)
-    return dct2d_fused.dct2_2d_fused(x, ortho=ortho)
+    _refuse_fold(fold)
+    if precision is Precision.HIGHEST:
+        return dct2d_fused.dct2_2d_fused(x, ortho=ortho)
+    h, w = x.shape[-2], x.shape[-1]
+    ch = basis_tensor(h, x.device, torch.float32, ortho=ortho)
+    cw = basis_tensor(w, x.device, torch.float32, ortho=ortho)
+    return matmul(matmul(ch, x, precision), cw.t(), precision)
 
 
 def idct2_2d(x: torch.Tensor, *, precision: Precision = Precision.HIGHEST,
              fold: bool = False) -> torch.Tensor:
     """Inverse of :func:`dct2_2d` (non-ortho): ``(D_h @ X) @ D_w^T`` times
-    ``f32(4/(W*H))``. A CUDA tensor runs kernel K6b; a CPU tensor its
-    plain version."""
-    _require_highest(precision, fold)
-    return dct2d_fused.idct2_2d_fused(x)
+    ``f32(4/(W*H))``. HIGHEST: a CUDA tensor runs kernel K6b, a CPU tensor
+    its plain version; DEFAULT and HIGH: :func:`matmul` at the tier."""
+    _refuse_fold(fold)
+    if precision is Precision.HIGHEST:
+        return dct2d_fused.idct2_2d_fused(x)
+    h, w = x.shape[-2], x.shape[-1]
+    dh = basis_tensor(h, x.device, torch.float32, inverse=True)
+    dw = basis_tensor(w, x.device, torch.float32, inverse=True)
+    y = matmul(matmul(dh, x, precision), dw.t(), precision)
+    return y * dct2d_fused.inverse_scale(h, w)
 
 
 def dct2_pass(x: torch.Tensor, *, axis: int, ortho: bool = False,
@@ -148,20 +206,21 @@ def dct2_pass(x: torch.Tensor, *, axis: int, ortho: bool = False,
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One 1-D DCT-II pass along ``axis`` (-1 or -2), scipy scaling.
 
-    The basis takes ``x``'s dtype (f32 or bf16), products are exact and
-    sums f32, as in the JAX package; the result is f32, or ``out_dtype``.
-    ``Precision.DEFAULT`` takes only bf16 planes. A bf16 result is rounded
-    once from the f32 sum.
+    The basis takes ``x``'s dtype (f32 or bf16), as in the JAX package, and
+    the product is the tier's (:func:`matmul`; products of bf16 values are
+    exact). The result is f32, or ``out_dtype``, rounded once from the f32
+    sum. ``Precision.DEFAULT`` takes only bf16 planes.
     """
-    if precision is Precision.HIGH:
-        raise _not_ported("precision 'high'")
     if precision is Precision.DEFAULT and x.dtype != torch.bfloat16:
         raise TypeError("the DEFAULT pass takes a bf16 plane")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"dct2_pass takes f32 or bf16, not {x.dtype}")
     c = basis_tensor(x.shape[axis], x.device, x.dtype, ortho=ortho)
-    bf16_out = x.dtype == torch.bfloat16 and out_dtype == torch.bfloat16
-    mm = matmul_bf16 if bf16_out else matmul_f32
+    if x.dtype == torch.bfloat16 and out_dtype == torch.bfloat16:
+        mm = matmul_bf16
+    else:
+        def mm(a, b):
+            return matmul(a, b, precision)
     if axis in (-2, x.ndim - 2):
         out = mm(c, x)                      # out[k, w] = sum_h C[k, h] x[h, w]
     elif axis in (-1, x.ndim - 1):
@@ -176,11 +235,12 @@ def _rows_cols(idx: torch.Tensor, w: int):
 
 
 def _dot_rows(t: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-              ch: torch.Tensor, cw: torch.Tensor,
-              contracted_axis: int) -> torch.Tensor:
+              ch: torch.Tensor, cw: torch.Tensor, contracted_axis: int,
+              precision: Precision) -> torch.Tensor:
     """coeff[r, c] from a plane after one pass: the one row (or column) of
-    ``t`` it needs against the basis row at the other coordinate; products
-    and sums in f32."""
+    ``t`` it needs against the basis row at the other coordinate, products
+    at the tier (bf16 operands at DEFAULT, the bf16x3 split at HIGH) and
+    sums in f32."""
     h, w = t.shape[-2], t.shape[-1]
     if contracted_axis in (-2, t.ndim - 2):
         # t = C_h @ Y; coeff[r, c] = t[r, :] . C_w[c, :]
@@ -193,6 +253,10 @@ def _dot_rows(t: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         cg = ch[rows]
     else:
         raise ValueError("contracted_axis must be one of the last two axes")
+    if precision is Precision.DEFAULT:
+        g, cg = _bf16_values(g), _bf16_values(cg)
+    elif precision is Precision.HIGH:
+        g, cg = _bf16x3_operands(g, cg, -1, -1)
     return (g.to(torch.float32) * cg.to(torch.float32)).sum(-1)
 
 
@@ -202,35 +266,34 @@ def dct2_dot_at(t: torch.Tensor, idx: torch.Tensor, *, contracted_axis: int,
 
     ``t`` (..., H, W) is the plane after :func:`dct2_pass` over
     ``contracted_axis``. For each ``i = r*W + c`` this returns coeff[r, c]
-    as n dots of length W (or H). At DEFAULT the operands are bf16 (exact
-    products, f32 sums; the JAX DEFAULT branch computes the same dots as a
-    masked matmul, so only the summation order differs); at HIGHEST they
-    are f32, the JAX gather-dot branch.
+    as n dots of length W (or H), products at the tier and f32 sums. The
+    JAX package's DEFAULT and HIGH branches compute the same dots as a
+    masked matmul against f32 (HIGH) or bf16 (DEFAULT) basis columns, so
+    only the summation order differs; at HIGHEST it is the same gather-dot.
     """
-    if precision is Precision.HIGH:
-        raise _not_ported("precision 'high'")
     if t.ndim != idx.ndim + 1:
         idx = idx.expand(*t.shape[:-2], idx.shape[-1])
     h, w = t.shape[-2], t.shape[-1]
-    dtype = torch.bfloat16 if precision is Precision.DEFAULT else torch.float32
     rows, cols = _rows_cols(idx, w)
-    return _dot_rows(t.to(dtype), rows, cols,
-                     basis_tensor(h, t.device, dtype),
-                     basis_tensor(w, t.device, dtype), contracted_axis)
+    # At DEFAULT the bf16 bases are the bf16-rounded f32 ones.
+    dtype = torch.bfloat16 if precision is Precision.DEFAULT else torch.float32
+    return _dot_rows(t, rows, cols, basis_tensor(h, t.device, dtype),
+                     basis_tensor(w, t.device, dtype), contracted_axis,
+                     precision)
 
 
 def dct2_coeffs_at(y: torch.Tensor, idx: torch.Tensor, *, ortho: bool = False,
                    precision: Precision = Precision.HIGHEST) -> torch.Tensor:
     """DCT-II coefficients of ``y`` (..., H, W) at flat indices ``idx``
-    (..., n) only: one full f32 pass over the shorter axis, then the
-    gather-dot at the n positions (the read path needs the derived image's
-    coefficients only there, reference src/algorithm.rs:543-562)."""
-    if precision is not Precision.HIGHEST:
-        raise _not_ported(f"dct2_coeffs_at at precision {precision.value!r}")
+    (..., n) only: one full pass over the shorter axis, then the gather-dot
+    at the n positions, both at the tier (the read path needs the derived
+    image's coefficients only there, reference src/algorithm.rs:543-562)."""
     h, w = y.shape[-2], y.shape[-1]
     ch = basis_tensor(h, y.device, torch.float32, ortho=ortho)
     cw = basis_tensor(w, y.device, torch.float32, ortho=ortho)
     rows, cols = _rows_cols(idx, w)
     if h <= w:
-        return _dot_rows(matmul_f32(ch, y), rows, cols, ch, cw, -2)
-    return _dot_rows(matmul_f32(y, cw.t()), rows, cols, ch, cw, -1)
+        return _dot_rows(matmul(ch, y, precision), rows, cols, ch, cw, -2,
+                         precision)
+    return _dot_rows(matmul(y, cw.t(), precision), rows, cols, ch, cw, -1,
+                     precision)

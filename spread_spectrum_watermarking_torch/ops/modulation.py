@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Method
-from .dct import matmul_f32
+from ..config import Method, Precision
+from .dct import matmul
 
 
 def insert_values(method: Method, alpha: float, original: torch.Tensor,
@@ -50,15 +50,17 @@ def embed_marks(original: torch.Tensor, marks: torch.Tensor, method: Method,
     return original + deltas.sum(dim=-2)
 
 
-def similarity(extracted: torch.Tensor,
-               candidates: torch.Tensor) -> torch.Tensor:
+def similarity(extracted: torch.Tensor, candidates: torch.Tensor,
+               precision: Precision = Precision.HIGHEST) -> torch.Tensor:
     """Cox et al. statistic ``X*.X / sqrt(X*.X*)``: (..., N) x (K, N) -> (..., K).
 
-    One f32 matmul with TF32 off, the JAX package's HIGHEST default. Under
-    the null hypothesis each entry is ~N(0, 1), so a threshold of k means
-    "k sigma" (reference: src/algorithm.rs:696-714).
+    One ``torch.matmul`` at the tier ``precision`` (``ops.dct.matmul``): f32
+    with TF32 off at HIGHEST, the JAX package's default; the bf16x3 split at
+    HIGH; bf16 operands with f32 sums at DEFAULT. Under the null hypothesis
+    each entry is ~N(0, 1), so a threshold of k means "k sigma" (reference:
+    src/algorithm.rs:696-714).
     """
-    nom = matmul_f32(extracted, candidates.t())
+    nom = matmul(extracted, candidates.t(), precision)
     den = torch.sqrt(torch.sum(extracted * extracted, dim=-1, keepdim=True))
     return nom / den
 

@@ -108,3 +108,44 @@ def test_luma_u8_table_bit_equal_to_jax_on_every_colour():
     np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
     with pytest.raises(TypeError):
         tc.luma_u8(torch.from_numpy(rgb[:2]).float())
+
+
+def test_add_luma_delta_f32_rounds_once_as_jitted_jax():
+    # The HIGHEST (and fast-tier float-output) epilogue. Under jit XLA
+    # contracts u8 * f32(1/255) + dY into one FMA; the helper rounds once
+    # and is bit-equal over every u8 value and dY of both signs from 1e-8
+    # to 0.1. The product and the sum rounded apart (the form CUDA tensors
+    # keep) is not.
+    mags = np.logspace(-8, -1, 300).astype(np.float32)
+    noise = np.random.default_rng(0).standard_normal(400) * 3e-3
+    d = np.concatenate([mags, -mags, noise]).astype(np.float32)
+    u = np.broadcast_to(np.arange(256, dtype=np.uint8)[:, None, None],
+                        (256, d.size, 3)).copy()
+    dd = np.broadcast_to(d[None, :], (256, d.size)).copy()
+    j = np.asarray(jax.jit(
+        lambda a, b: jnp.clip(jc.u8_to_f32(a) + b[..., None], 0.0, 1.0))(
+            jnp.asarray(u), jnp.asarray(dd)))
+    tu, td_ = torch.from_numpy(u), torch.from_numpy(dd)
+    t = tc.add_luma_delta_f32(tu, td_).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+    twice = torch.clamp(tc.u8_to_f32(tu) + td_[..., None], 0.0, 1.0).numpy()
+    assert np.any(twice != j)
+    # Float images add in f32, as the JAX package does.
+    f = u.astype(np.float32) / 255.0
+    jf = np.asarray(jax.jit(lambda a, b: jnp.clip(a + b[..., None], 0.0, 1.0))(
+        jnp.asarray(f), jnp.asarray(dd)))
+    np.testing.assert_array_equal(
+        tc.add_luma_delta_f32(torch.from_numpy(f), td_).numpy(), jf)
+
+
+@pytest.mark.parametrize("kinds", [("u8", "f32"), ("f32", "u8"),
+                                   ("f32", "f32")])
+def test_luma_diff_of_float_images_bit_equal(kinds):
+    # Any float image takes the JAX package's other branch: the difference
+    # of the two f32 lumas (u8 through u8_to_f32).
+    base, derived = _images(2), _images(3)
+    pair = [x if k == "u8" else (x.astype(np.float32) / 255.0)
+            for x, k in zip((base, derived), kinds)]
+    j = np.asarray(jax.jit(jc.luma_diff)(*map(jnp.asarray, pair)))
+    t = tc.luma_diff(*map(torch.from_numpy, pair)).numpy()
+    np.testing.assert_array_equal(t, j)

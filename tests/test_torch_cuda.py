@@ -40,17 +40,20 @@ def _images(seed, h, w, device, b=2):
             torch.from_numpy(near.astype(np.uint8)).to(device))
 
 
-def _k1_bound(rgb, base, t, r):
+def _k1_bound(rgb, base, t, r, high=False):
     """One bf16 ulp, plus the gamma_K bound of an f32 sum of K terms taken
-    in another order, 2 K 2^-24 sum_k |C y|: the sums cancel near zero."""
+    in another order, 2 K 2^-24 sum_k |C y|: the sums cancel near zero. In
+    high mode the sum has 3K terms (three products per k) and y is the f32
+    luma the kernel splits."""
     if base is None:
         y = colorspace.luma_u8(rgb)
     else:
         y = colorspace.luma_diff(base, rgb)
-    y = y.to(torch.bfloat16).float().abs()
+    dtype = torch.float32 if high else torch.bfloat16
+    y = y.to(dtype).float().abs()
     h, w = rgb.shape[1:3]
-    k = min(h, w)
-    c = dct.basis_tensor(k, rgb.device, torch.bfloat16).float().abs()
+    k = min(h, w) * (3 if high else 1)
+    c = dct.basis_tensor(min(h, w), rgb.device, dtype).float().abs()
     terms = dct.matmul_f32(c, y) if h <= w else dct.matmul_f32(y, c.t())
     big = torch.maximum(t.abs(), r.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
@@ -67,6 +70,19 @@ def test_luma_pass_kernel_matches_plain(cuda, h, w):
         assert k1.LAUNCHES == before + 1
         r = k1.luma_pass_reference(rgb, base).float()
         assert bool(((t - r).abs() <= _k1_bound(rgb, base, t, r)).all())
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_luma_pass_high_kernel_matches_plain(cuda, h, w):
+    rgb, _ = _images(4, h, w, cuda)
+    before = (k1.LAUNCHES, k1.HIGH_LAUNCHES)
+    t = k1.luma_pass(rgb, precision=tw.Precision.HIGH)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k1.HIGH_LAUNCHES) == (before[0], before[1] + 1)
+    assert t.dtype == torch.bfloat16 and t.shape == rgb.shape[:3]
+    t = t.float()
+    r = k1.luma_pass_reference(rgb, precision=tw.Precision.HIGH).float()
+    assert bool(((t - r).abs() <= _k1_bound(rgb, None, t, r, True)).all())
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
@@ -150,6 +166,27 @@ def test_highest_path_on_the_card_matches_the_cpu(cuda):
                     torch.from_numpy(marks).to(cuda), sparse_idct=False)
     assert k6.INVERSE_LAUNCHES == before + 1
     assert int((full.cpu().int() - g_marked.cpu().int()).abs().max()) <= 1
+
+
+def test_high_path_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(5)
+    rgb = rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    marks = rng.standard_normal((2, 1, 200)).astype(np.float32)
+    cfg = tw.WriteConfig(precision=tw.Precision.HIGH)
+    before = (k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES)
+    g_marked, g_ext = tw.embed_verified(torch.from_numpy(rgb).to(cuda),
+                                        torch.from_numpy(marks).to(cuda), cfg)
+    torch.cuda.synchronize()
+    # K1's high mode (base), its pair mode (read tail), K4 (epilogue).
+    assert (k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    c_marked, c_ext = tw.embed_verified(torch.from_numpy(rgb),
+                                        torch.from_numpy(marks), cfg)
+    assert int((g_marked.cpu().int() - c_marked.int()).abs().max()) <= 1
+    own = [torch.diagonal(tw.similarity(e.cpu(), torch.from_numpy(marks[:, 0])))
+           for e in (g_ext, c_ext)]
+    assert bool(((own[0] - own[1]).abs() <= 0.1).all())
+    assert bool((own[0] > 6.0).all())
 
 
 def test_dct2d_wrappers_refuse_what_the_kernel_does_not_take(cuda):

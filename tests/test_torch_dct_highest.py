@@ -104,16 +104,16 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_unported_tiers_and_fold_raise():
+    # Every tier is ported (DEFAULT and HIGH: tests/test_torch_dct_high.py);
+    # the folded transforms (K1f) still raise at each, naming ROADMAP.
     x = torch.from_numpy(_x(7, 64, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.dct2_2d(x, fold=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.idct2_2d(x, fold=True)
-    for p in (Precision.DEFAULT, Precision.HIGH):
-        with pytest.raises(NotImplementedError):
-            td.dct2_2d(x, precision=p)
-        with pytest.raises(NotImplementedError):
-            td.idct2_2d(x, precision=p)
+    for p in Precision:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            td.dct2_2d(x, precision=p, fold=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            td.idct2_2d(x, precision=p, fold=True)
+        assert td.dct2_2d(x, precision=p).shape == x.shape
+        assert td.idct2_2d(x, precision=p).shape == x.shape
 
 
 @pytest.mark.parametrize("axis", [-2, -1])
@@ -169,11 +169,16 @@ def test_dct2_coeffs_at_matches_full_transform(h, w):
 
 
 def test_dct2_coeffs_at_single_image_and_default_raises():
+    # DEFAULT no longer raises: it is ported, with bf16 operands, and held
+    # here to the full transform at the DEFAULT bound of
+    # tests/test_torch_dct_high.py, 2^-5 |C_h| |X| |C_w|^T.
     x = _x(13, 6, 10, b=1)[0]
     idx = np.array([1, 7, 33, 59])
     t = td.dct2_coeffs_at(torch.from_numpy(x), torch.from_numpy(idx)).numpy()
     full = np.asarray(jd.dct2_2d(jnp.asarray(x))).reshape(-1)[idx]
     np.testing.assert_allclose(t, full, rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        td.dct2_coeffs_at(torch.from_numpy(x), torch.from_numpy(idx),
-                          precision=Precision.DEFAULT)
+    d = td.dct2_coeffs_at(torch.from_numpy(x), torch.from_numpy(idx),
+                          precision=Precision.DEFAULT).numpy()
+    bound = _gamma_bound(x, td.dct2_basis(6), td.dct2_basis(10)) / (
+        2 * 16 * U) * 2.0 ** -5
+    assert np.all(np.abs(d - full) <= bound.reshape(-1)[idx])

@@ -7,7 +7,8 @@ import torch
 
 from spread_spectrum_watermarking_tpu.config import Method as JMethod
 from spread_spectrum_watermarking_tpu.ops import modulation as jm
-from spread_spectrum_watermarking_torch.config import Method
+from spread_spectrum_watermarking_torch import interop
+from spread_spectrum_watermarking_torch.config import Method, Precision
 from spread_spectrum_watermarking_torch.ops import modulation as tm
 
 RTOL = 1e-5  # the same f32 equations; exp/log and sums may differ by ulps
@@ -67,3 +68,32 @@ def test_similarity_matches_and_thresholds():
     assert t[0, 0] > 6.0
     np.testing.assert_array_equal(tm.exceeds_sigma(t, 6.0).numpy(),
                                   np.asarray(jm.exceeds_sigma(jnp.asarray(j), 6.0)))
+
+
+@pytest.mark.parametrize("name,bound", [("HIGHEST", 0.0), ("HIGH", 1e-3),
+                                        ("DEFAULT", 5e-2)])
+def test_similarity_precisions_match_jax_and_preserve_detection(name, bound):
+    # JAX's third parameter, in the port: one lax.Precision carried to both
+    # (interop). As tests/test_modulation.py pins the JAX tiers: HIGH within
+    # 1e-3 sigma and DEFAULT within 5e-2 sigma of HIGHEST; against jitted
+    # JAX (f32 at every tier on the CPU) within the same bound plus f32
+    # reassociation.
+    import jax
+
+    rng = np.random.default_rng(3)
+    ext = rng.standard_normal((64, 1000)).astype(np.float32)
+    marks = rng.standard_normal((256, 1000)).astype(np.float32)
+    lax_p = getattr(jax.lax.Precision, name)
+    p = interop.precision_from_reference(lax_p)
+    assert p is Precision[name]
+    te, tk = torch.from_numpy(ext), torch.from_numpy(marks)
+    hi = tm.similarity(te, tk).numpy()
+    t = tm.similarity(te, tk, precision=p).numpy()
+    positional = tm.similarity(te, tk, p).numpy()
+    np.testing.assert_array_equal(t, positional)
+    assert np.abs(t - hi).max() <= bound
+    j = np.asarray(jax.jit(jm.similarity, static_argnums=2)(
+        jnp.asarray(ext), jnp.asarray(marks), lax_p))
+    assert np.abs(t - j).max() <= bound + 1e-4
+    if name != "HIGHEST":
+        assert np.abs(t - hi).max() > 0  # the tier is not the f32 product

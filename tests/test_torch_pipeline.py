@@ -120,31 +120,28 @@ def test_other_methods_round_trip(method):
 
 
 def test_unported_tiers_and_options_raise():
-    # HIGHEST is ported (tests/test_torch_pipeline_highest.py); HIGH is not,
-    # nor are float images, float output and the full inverse at DEFAULT.
+    # Every tier and option of the JAX pipelines is ported
+    # (tests/test_torch_pipeline_high.py, _highest.py) but custom callables
+    # and rank generation 1, which raise naming ROADMAP at both fast tiers.
     rgb, marks = _inputs(37, 59)
     base, m = torch.from_numpy(rgb), torch.from_numpy(marks)
-    high = tw.Precision.HIGH
-    with pytest.raises(NotImplementedError):
-        tw.embed_verified(base, m, tw.WriteConfig(precision=high))
-    with pytest.raises(NotImplementedError):
-        tw.embed(base, m, tw.WriteConfig(precision=high))
-    with pytest.raises(NotImplementedError):
-        tw.extract(base, base, N, tw.ReadConfig(precision=high))
-    with pytest.raises(NotImplementedError):
-        tw.rank_plane(base, high)
-    with pytest.raises(NotImplementedError):
-        tw.embed(base, m, TW, sparse_idct=False)
-    with pytest.raises(NotImplementedError):
-        tw.embed(base, m, TW, quantize=False)
-    with pytest.raises(NotImplementedError):
-        tw.embed_verified(base, m, TW, quantize=False)
-    with pytest.raises(NotImplementedError):
-        tw.embed(base.float() / 255.0, m, TW)
-    custom = tw.WriteConfig(precision=tw.Precision.DEFAULT,
-                            custom_ordering=lambda i, v: v)
-    with pytest.raises(NotImplementedError):
-        tw.embed(base, m, custom)
+    for p in (tw.Precision.DEFAULT, tw.Precision.HIGH):
+        cases = [
+            (tw.embed, tw.WriteConfig(precision=p,
+                                      custom_ordering=lambda i, v: v)),
+            (tw.embed, tw.WriteConfig(precision=p,
+                                      custom_insert=lambda i, o, k: o)),
+            (tw.embed, tw.WriteConfig(precision=p, rank_version=1)),
+            (tw.embed_verified, tw.WriteConfig(precision=p, rank_version=1)),
+        ]
+        for fn, cfg in cases:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                fn(base, m, cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tw.extract(base, base, N, tw.ReadConfig(
+                precision=p, custom_extract=lambda i, b, d: d))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tw.rank_base(base, N, tw.ReadConfig(precision=p, rank_version=1))
 
 
 def test_interop_maps_configs_and_state():

@@ -204,5 +204,5 @@ def test_unported_options_raise_at_highest():
     with pytest.raises(NotImplementedError):
         tw.extract(base, base, N,
                    tw.ReadConfig(custom_extract=lambda i, b, d: d))
-    with pytest.raises(NotImplementedError):
-        tw.prepare_base(base, N, tw.ReadConfig(precision=tw.Precision.DEFAULT))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tw.prepare_base(base, N, tw.ReadConfig(custom_ordering=lambda i, v: v))
