@@ -18,6 +18,18 @@ Phases, one line of output each, any failure exits non-zero:
 4. K6a/K6b (the 2-D DCT and its inverse, f32) against their plain versions
    at 444x640, 640x444, 37x59, 48x1080x1920, 1920x1080 and 2x2160x3840,
    and both times at 48x1080x1920;
+4b. K1f (the folded DCT pass) against its plain version at 4x1080x1920,
+   4x1920x1080, 2x64x128 and 2x2160x3840, at DEFAULT and HIGH, both
+   orientations; then at 48x1080x1920 and each tier ``dct2_2d(fold=True)``
+   with K1f's launch counts from that one call (two at DEFAULT and HIGH,
+   none at HIGHEST), held to ``fold=False`` and its inverse to the dense
+   inverse, the round trip, the whole transforms' times folded and dense;
+   last, at each fast tier, K1f against its plain version on that path's
+   own inputs (the plane for the rows pass, the rows pass's output for the
+   cols pass), and its times per orientation beside its plain version, its
+   bound and one ``torch.matmul`` of the dense pass;
+4c. K7 (add and quantize) bit-equal to its plain version at 48x1080x1920
+   in both modes, with its times, its bound and the two-rounding form's;
 5. the main path: ``embed_verified`` at 1080p, batch 48, n = 1000, DEFAULT
    on 1/f textures, with the kernels' launch counts from that one call, the
    detection checks, the detect path's bit-equality, agreement with the
@@ -30,7 +42,8 @@ Phases, one line of output each, any failure exits non-zero:
    DEFAULT and HIGH read back by the fast Reader, float input at DEFAULT,
    ``prepare_base`` at HIGH;
 8. the HIGHEST path (every config's default) at 1080p batch 48:
-   ``embed_verified`` with K6a's launch count from that call, detection,
+   ``embed_verified`` with K6a's and K7's launch counts from that call
+   (K7 exactly once), detection,
    ``extract`` bit-equal to its extraction and ``extract_prepared`` within
    0.01 sigma of it, ``embed(sparse_idct=False)`` with K6b's launch count,
    the CPU agreement check, Writer/Reader/Tester on one image, a stage
@@ -38,8 +51,11 @@ Phases, one line of output each, any failure exits non-zero:
 9. 4K, batch 8: one ``embed_verified`` on 1/f textures at DEFAULT and one
    at HIGH, and images/s of each.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record, each kernel with its
+time, its plain version's, its bound (the larger of its operations over the
+card's peak for their type and its bytes over the memory rate, from this
+run's shapes) and one library call's time where one computes the same
+function; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -60,6 +76,20 @@ SIGMA = 6.0
 # each of the two sums). It matters only for outputs near zero, where the
 # sum cancels; the script prints how much of the bound was used.
 F32_U = 2.0 ** -24
+# One H100 SXM (NVIDIA's data sheet, dense): bf16 tensor-core and f32
+# (outside the tensor cores) peaks, FLOP/s, and the memory rate, bytes/s.
+BF16_PEAK = 989e12
+F32_PEAK = 67e12
+HBM_RATE = 3.35e12
+
+
+def bound(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations over ``peak`` and the bytes (each input read once, each
+    output written once) over the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def log(phase: str, **fields) -> None:
@@ -214,13 +244,24 @@ def phase_k1() -> tuple[dict, dict]:
         worst[key] = max(worst[key], _compare_k1(rgb, mode, p))
         times[name] = (time_ms(lambda: k1.luma_pass(rgb, mode, p), 5),
                        time_ms(lambda: k1.luma_pass_reference(rgb, mode, p), 5))
+    b, h, w = rgb.shape[:3]
+    px, k = b * h * w, min(h, w)
+    # Each output sums K products; u8 in (two images in pair mode), bf16
+    # out, the bf16 basis (its hi and lo parts at HIGH).
+    bounds = {"single": bound(2 * px * k, 5 * px + 2 * k * k, BF16_PEAK),
+              "pair": bound(2 * px * k, 8 * px + 2 * k * k, BF16_PEAK),
+              "high": bound(6 * px * k, 5 * px + 4 * k * k, BF16_PEAK)}
     log("k1_time", shape=[48, 1080, 1920],
         **{f"{name}_{kind}": t[i] for name, t in times.items()
-           for i, kind in enumerate(("ms", "plain_ms"))})
+           for i, kind in enumerate(("ms", "plain_ms"))},
+        **{f"{name}_{key}": v for name, bd in bounds.items()
+           for key, v in bd.items()})
     return ({"max_abs_err": worst["default"], "ms": times["single"][0],
-             "plain_ms": times["single"][1]},
+             "plain_ms": times["single"][1], "library_ms": None,
+             **bounds["single"]},
             {"max_abs_err": worst["high"], "ms": times["high"][0],
-             "plain_ms": times["high"][1]})
+             "plain_ms": times["high"][1], "library_ms": None,
+             **bounds["high"]})
 
 
 def _epilogue_inputs(b: int, h: int, w: int):
@@ -265,8 +306,28 @@ def phase_k4() -> dict:
     worst = max(worst, _compare_k4(rgb, a, b))
     ms = time_ms(lambda: k4.embed_epilogue(rgb, a, b), 5)
     plain = time_ms(lambda: k4.embed_epilogue_reference(rgb, a, b), 5)
-    log("k4_time", shape=[48, 1080, 1920], n=N, ms=ms, plain_ms=plain)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    bsz, h, w = rgb.shape[:3]
+    # An (H, n) @ (n, W) product per image; u8 in and out, bf16 factors.
+    bd = bound(2 * bsz * h * w * N, 6 * bsz * h * w + 2 * bsz * N * (h + w),
+               BF16_PEAK)
+    log("k4_time", shape=[48, 1080, 1920], n=N, ms=ms, plain_ms=plain, **bd)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "library_ms": None, **bd}
+
+
+def abs_transform(x, inverse: bool):
+    """|L| |X| |R|^T (times the inverse's scale): the scale of the f32 sums
+    of a 2-D transform of ``x``."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    h, w = x.shape[-2:]
+    left = dct.basis_tensor(h, x.device, torch.float32, inverse).abs()
+    right = dct.basis_tensor(w, x.device, torch.float32, inverse).abs()
+    scale = k6.inverse_scale(h, w) if inverse else 1.0
+    return scale * dct.matmul_f32(dct.matmul_f32(left, x.abs()), right.t())
 
 
 def _compare_k6(x, inverse: bool) -> tuple[float, float]:
@@ -276,7 +337,6 @@ def _compare_k6(x, inverse: bool) -> tuple[float, float]:
     import torch
 
     from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
-    from spread_spectrum_watermarking_torch.ops import dct
 
     b, h, w = x.shape
     kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
@@ -285,21 +345,16 @@ def _compare_k6(x, inverse: bool) -> tuple[float, float]:
     torch.cuda.synchronize()
     d = (t - plain(x)).abs()
     del t
-    left = dct.basis_tensor(h, x.device, torch.float32, inverse).abs()
-    right = dct.basis_tensor(w, x.device, torch.float32, inverse).abs()
-    scale = k6.inverse_scale(h, w) if inverse else 1.0
-    units = F32_U * scale * dct.matmul_f32(dct.matmul_f32(left, x.abs()),
-                                           right.t())
-    bound = 2 * (h + w + int(inverse))
-    used = float((d / units).max())
+    terms = 2 * (h + w + int(inverse))
+    used = float((d / (F32_U * abs_transform(x, inverse))).max())
     name = "k6b" if inverse else "k6a"
     log(name, shape=[b, h, w], max_abs_err=float(d.max()),
         share_differing=float((d > 0).float().mean()),
-        max_err_in_u_sum_abs=used, bound_in_u_sum_abs=bound,
-        share_of_bound_used=used / bound)
-    if not used <= bound:
+        max_err_in_u_sum_abs=used, bound_in_u_sum_abs=terms,
+        share_of_bound_used=used / terms)
+    if not used <= terms:
         raise AssertionError(f"{name} {b}x{h}x{w}: outside the gamma bound")
-    return float(d.max()), used / bound
+    return float(d.max()), used / terms
 
 
 def phase_k6() -> tuple[dict, dict]:
@@ -319,6 +374,10 @@ def phase_k6() -> tuple[dict, dict]:
         del x
         torch.cuda.empty_cache()
     x = torch.rand((48, 1080, 1920), generator=gen, device="cuda")
+    b, h, w = x.shape
+    # Two f32 products on the SIMT units; f32 in and out, the f32 bases.
+    bd = bound(2 * b * (h * h * w + h * w * w),
+               8 * b * h * w + 4 * (h * h + w * w), F32_PEAK)
     recs = []
     for inverse in (False, True):
         kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
@@ -326,10 +385,11 @@ def phase_k6() -> tuple[dict, dict]:
                  else k6.dct2_2d_fused_reference)
         recs.append({"max_abs_err": worst[inverse],
                      "ms": time_ms(lambda: kernel(x), 5),
-                     "plain_ms": time_ms(lambda: plain(x), 5)})
+                     "plain_ms": time_ms(lambda: plain(x), 5),
+                     "library_ms": None, **bd})
     log("k6_time", shape=[48, 1080, 1920], k6a_ms=recs[0]["ms"],
         k6a_plain_ms=recs[0]["plain_ms"], k6b_ms=recs[1]["ms"],
-        k6b_plain_ms=recs[1]["plain_ms"],
+        k6b_plain_ms=recs[1]["plain_ms"], **bd,
         k6a_tflops=2 * 48 * (1080 * 1080 * 1920 + 1080 * 1920 * 1920)
         / (recs[0]["ms"] * 1e9))
     x4 = torch.rand((2, 2160, 3840), generator=gen, device="cuda")
@@ -337,6 +397,203 @@ def phase_k6() -> tuple[dict, dict]:
         k6a_ms=time_ms(lambda: k6.dct2_2d_fused(x4), 3),
         k6a_plain_ms=time_ms(lambda: k6.dct2_2d_fused_reference(x4), 3))
     return recs[0], recs[1]
+
+
+def _compare_k1f(x, axis: int, precision) -> float:
+    """K1f on ``x`` against its plain version; logs, raises outside
+    2 K u sum |c| |v| (products of bf16 values are exact, so only the order
+    of the f32 sums differs; K = N/2 terms, 3N/2 at HIGH), returns
+    max |err|."""
+    import torch
+
+    from spread_spectrum_watermarking_torch import Precision
+    from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
+
+    t = k1f.fold_pass(x, axis, precision=precision)
+    torch.cuda.synchronize()
+    d = (t - k1f.fold_pass_reference(x, axis, precision=precision)).abs()
+    del t
+    terms = x.shape[axis] // 2 * (3 if precision is Precision.HIGH else 1)
+    scale = (F32_U * k1f.fold_terms(x, axis, precision)).clamp_min(1e-30)
+    used = float((d / scale).max())
+    log("k1f", shape=list(x.shape), tier=precision.value, axis=axis,
+        max_abs_err=float(d.max()),
+        share_differing=float((d > 0).float().mean()),
+        max_err_in_u_sum_abs=used, bound_in_u_sum_abs=2 * terms,
+        share_of_bound_used=used / (2 * terms))
+    if not used <= 2 * terms:
+        raise AssertionError(f"K1f {precision.value} axis {axis} "
+                             f"{list(x.shape)}: outside tolerance")
+    return float(d.max())
+
+
+def _fold_transform_checks(x, precision) -> dict:
+    """One ``dct2_2d(fold=True)`` of ``x`` with K1f's launch counts from
+    that call, held to ``fold=False``; the inverse fold held to the dense
+    inverse of the same coefficients; the round trip. Each side of a
+    comparison is within the tier's bound of the exact transform (f32:
+    none but its sums; HIGH 2^-12 + 8 (H + W) u; DEFAULT 2^-5, in units of
+    |L| |X| |R|^T), so the two are within twice that plus 2 (H + W + 2) u
+    for the f32 sums and the roundings of s and d (H + W + 3 for the
+    inverse, with its scale)."""
+    import torch
+
+    from spread_spectrum_watermarking_torch import Precision
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    b, h, w = x.shape
+    factor = {Precision.HIGHEST: 0.0,
+              Precision.HIGH: 2.0 ** -12 + 8 * (h + w) * F32_U,
+              Precision.DEFAULT: 2.0 ** -5}[precision]
+    _zero_kernel_counts()
+    c = dct.dct2_2d(x, precision=precision, fold=True)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    want = {Precision.DEFAULT: (2, 0), Precision.HIGH: (0, 2),
+            Precision.HIGHEST: (0, 0)}[precision]
+    got = (counts["k1f"], counts["k1f_high"])
+    if got != want or sum(counts.values()) != sum(got):
+        raise AssertionError(f"dct2_2d(fold=True) at {precision.value} "
+                             f"launched {counts}")
+    dense = dct.dct2_2d(x, precision=precision)
+    fwd = float(((c - dense).abs() / abs_transform(x, False)).max())
+    fwd_bound = 2 * factor + 2 * (h + w + 2) * F32_U
+    inv_fold = dct.idct2_2d(dense, precision=precision, fold=True)
+    inv = float(((inv_fold - dct.idct2_2d(dense, precision=precision)).abs()
+                 / abs_transform(dense, True)).max())
+    inv_bound = 2 * factor + 2 * (h + w + 3) * F32_U
+    del inv_fold, dense
+    trip = float((dct.idct2_2d(c, precision=precision, fold=True)
+                  - x).abs().max())
+    trip_tol = 0.1 if precision is Precision.DEFAULT else 1e-3
+    del c
+    out = {"launches": counts, "forward_share_of_bound": fwd / fwd_bound,
+           "inverse_share_of_bound": inv / inv_bound,
+           "round_trip_max_abs_err": trip, "round_trip_tol": trip_tol}
+    if not (fwd <= fwd_bound and inv <= inv_bound and trip <= trip_tol):
+        raise AssertionError(f"the folded transforms at {precision.value}: "
+                             f"{out}")
+    return out
+
+
+def phase_fold() -> tuple[dict, dict]:
+    """K1f against its plain version, then the folded transforms at 48 x
+    1080p and each tier, their times against the dense ones, and K1f's
+    times per orientation and tier: the records of ``fold_pass`` and
+    ``fold_pass_high``."""
+    import torch
+
+    from spread_spectrum_watermarking_torch import Precision
+    from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    fast = (Precision.DEFAULT, Precision.HIGH)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, w in [(4, 1080, 1920), (4, 1920, 1080), (2, 64, 128),
+                    (2, 2160, 3840)]:
+        x = torch.rand((b, h, w), generator=gen, device="cuda")
+        for p in fast:
+            for axis in (-2, -1):
+                _compare_k1f(x, axis, p)
+        del x
+        torch.cuda.empty_cache()
+
+    x = torch.rand((48, 1080, 1920), generator=gen, device="cuda")
+    b, h, w = x.shape
+    launches = {}
+    for p in (Precision.DEFAULT, Precision.HIGH, Precision.HIGHEST):
+        checks = _fold_transform_checks(x, p)
+        launches[p] = sum(checks["launches"].values())
+        log("fold_transform", shape=[b, h, w], tier=p.value,
+            fold_ms=time_ms(lambda: dct.dct2_2d(x, precision=p, fold=True), 5),
+            dense_ms=time_ms(lambda: dct.dct2_2d(x, precision=p), 5),
+            inverse_fold_ms=time_ms(
+                lambda: dct.idct2_2d(x, precision=p, fold=True), 3),
+            inverse_dense_ms=time_ms(lambda: dct.idct2_2d(x, precision=p), 3),
+            **checks)
+        torch.cuda.empty_cache()
+
+    recs = []
+    for p in fast:
+        high = p is Precision.HIGH
+        t = k1f.fold_pass(x, -2, precision=p)  # the cols pass's input
+        # Each pass held to its plain version on the main path's own
+        # inputs: the plane, then the rows pass's output.
+        rec = {"max_abs_err": max(_compare_k1f(x, -2, p),
+                                  _compare_k1f(t, -1, p)),
+               "launches": launches[p], "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0}
+        flops = nbytes = 0
+        for axis, v in ((-2, x), (-1, t)):
+            n = v.shape[axis]
+            c = dct.basis_tensor(n, x.device, torch.float32)
+            # The library's dense pass, one torch.matmul: bf16 operands with
+            # f32 sums at DEFAULT, f32 at HIGH.
+            if high:
+                lib = ((lambda: dct.matmul_f32(c, v)) if axis == -2
+                       else (lambda: dct.matmul_f32(v, c.t())))
+            else:
+                cb, vb = c.to(torch.bfloat16), v.to(torch.bfloat16)
+                lib = ((lambda: dct.matmul_bf16(cb, vb)) if axis == -2
+                       else (lambda: dct.matmul_bf16(vb, cb.t())))
+            # Two products of N/2 terms for each of the plane's outputs
+            # (three of each at HIGH); f32 in and out, the bf16 halves.
+            pf = 2 * (n // 2) * b * h * w * (3 if high else 1)
+            pb = 8 * b * h * w + 2 * (n // 2) ** 2 * 2 * (2 if high else 1)
+            times = {"ms": time_ms(lambda: k1f.fold_pass(v, axis, precision=p), 5),
+                     "plain_ms": time_ms(lambda: k1f.fold_pass_reference(
+                         v, axis, precision=p), 5),
+                     "library_ms": time_ms(lib, 5)}
+            log("k1f_time", shape=[b, h, w], tier=p.value, axis=axis, **times,
+                **bound(pf, pb, BF16_PEAK))
+            for key, ms in times.items():
+                rec[key] += ms
+            flops += pf
+            nbytes += pb
+        recs.append({**rec, **bound(flops, nbytes, BF16_PEAK)})
+        del t
+        torch.cuda.empty_cache()
+    return recs[0], recs[1]
+
+
+def phase_k7() -> dict:
+    """K7 bit-equal to its plain version at 48 x 1080p in both modes, with
+    its times, its bound and the two-rounding form's time: the record of
+    ``add_quantize`` (its u8 mode, the one the HIGHEST path runs)."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
+    from spread_spectrum_watermarking_torch.ops import colorspace
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rgb = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    dy = torch.randn((48, 1080, 1920), generator=gen, device="cuda") * 0.01
+    fields = {}
+    for quantize, mode in ((True, "u8"), (False, "f32")):
+        t = k7.add_quantize(rgb, dy, quantize)
+        torch.cuda.synchronize()
+        r = k7.add_quantize_reference(rgb, dy, quantize)
+        if not torch.equal(t.view(torch.uint8), r.view(torch.uint8)):
+            raise AssertionError(f"K7 {mode}: not bit-equal to its plain version")
+        del t, r
+        torch.cuda.empty_cache()
+        # u8 and dY in; u8 (or f32) out.
+        out_bytes = rgb.numel() * (1 if quantize else 4)
+        bd = bound(0, rgb.numel() + 4 * dy.numel() + out_bytes, F32_PEAK)
+        fields.update({
+            f"{mode}_ms": time_ms(lambda: k7.add_quantize(rgb, dy, quantize), 5),
+            f"{mode}_plain_ms": time_ms(
+                lambda: k7.add_quantize_reference(rgb, dy, quantize), 3),
+            **{f"{mode}_{key}": v for key, v in bd.items()}})
+    # The form the card ran before K7: product and sum rounded apart.
+    fields["two_rounding_ms"] = time_ms(lambda: colorspace.f32_to_u8(
+        torch.clamp(colorspace.u8_to_f32(rgb) + dy[..., None], 0.0, 1.0)), 3)
+    log("k7", shape=[48, 1080, 1920], bit_equal_u8=True, bit_equal_f32=True,
+        **fields)
+    return {"max_abs_err": 0.0, "ms": fields["u8_ms"],
+            "plain_ms": fields["u8_plain_ms"], "library_ms": None,
+            "bound_ms": fields["u8_bound_ms"], "bound_by": fields["u8_bound_by"]}
 
 
 def _check_detection(tag: str, ext, marks, gen) -> dict:
@@ -478,22 +735,28 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
 
 
 def _kernel_counts() -> dict:
+    from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
     from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
     from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
+    from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
     return {"k1": k1.LAUNCHES, "k1_high": k1.HIGH_LAUNCHES,
             "k4": k4.LAUNCHES, "k6a": k6.FORWARD_LAUNCHES,
-            "k6b": k6.INVERSE_LAUNCHES}
+            "k6b": k6.INVERSE_LAUNCHES, "k1f": k1f.LAUNCHES,
+            "k1f_high": k1f.HIGH_LAUNCHES, "k7": k7.LAUNCHES}
 
 
 def _zero_kernel_counts() -> None:
+    from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
     from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
     from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
+    from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
     k1.LAUNCHES = k1.HIGH_LAUNCHES = k4.LAUNCHES = 0
     k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
+    k1f.LAUNCHES = k1f.HIGH_LAUNCHES = k7.LAUNCHES = 0
 
 
 def phase_fast_path(precision, recs: dict) -> None:
@@ -525,7 +788,8 @@ def phase_fast_path(precision, recs: dict) -> None:
         recs["luma_pass"]["launches"] = counts["k1"]
         recs["embed_epilogue"]["launches"] = counts["k4"]
         ran = counts["k1"] > 0 and counts["k4"] > 0 and counts["k1_high"] == 0
-    if not ran or counts["k6a"] or counts["k6b"]:
+    if not ran or any(counts[k] for k in ("k6a", "k6b", "k1f", "k1f_high",
+                                          "k7")):
         raise AssertionError(f"{precision.value} path launched {counts}")
 
     det = _check_detection(f"1080p {precision.value}", ext, marks, gen)
@@ -608,11 +872,11 @@ def phase_fast_options() -> None:
 
 def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
     """ms per stage of one HIGHEST embed_verified call (its sparse embed,
-    then its read), CUDA events around each; beside them, the epilogue with
-    the sum rounded once (``add_and_quantize_one_rounding``), the form the
-    CPU path takes and the card does not (``colorspace.add_luma_delta_f32``)."""
+    then its read), CUDA events around each."""
     import torch
 
+    from spread_spectrum_watermarking_torch.kernels.add_quantize import (
+        add_quantize)
     from spread_spectrum_watermarking_torch.models import pipeline as tp
     from spread_spectrum_watermarking_torch.ops import (colorspace, dct,
                                                         modulation, ranking)
@@ -635,26 +899,18 @@ def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
             ie.alpha))
         box["dy"] = run("sparse_delta", lambda: tp._sparse_idct_delta(
             box["new"] - box["orig"], idx, h, w, cfg.precision))
-        box["m"] = run("add_and_quantize", lambda: colorspace.f32_to_u8(
-            colorspace.add_luma_delta_f32(rgb, box["dy"])))
+        box["m"] = run("k7_add_quantize",
+                       lambda: add_quantize(rgb, box["dy"], True))
         yd = run("derived_luma", lambda: colorspace.luma(box["m"]))
         run("coeffs_at", lambda: dct.dct2_coeffs_at(yd, idx))
-    # Apart from the call's stages, so that its f64 temporaries do not
-    # change what the caching allocator holds for them.
-    for _ in range(2):
-        run("add_and_quantize_one_rounding", lambda: colorspace.f32_to_u8(
-            torch.clamp(colorspace._fma_f32(rgb, colorspace._INV255,
-                                            box["dy"][..., None]), 0.0, 1.0)))
     return stages
 
 
-def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
+def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
     import torch
 
     import spread_spectrum_watermarking_torch as wm
     from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
-    from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
-    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
     cfg, rcfg = wm.WriteConfig(), wm.ReadConfig()  # HIGHEST, the default
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -665,9 +921,11 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
     _zero_kernel_counts()
     marked, ext = wm.embed_verified(rgb, marks, cfg)
     torch.cuda.synchronize()
-    k6a_rec["launches"] = k6.FORWARD_LAUNCHES
-    if k6.FORWARD_LAUNCHES == 0:
-        raise AssertionError("the HIGHEST path did not launch K6a")
+    counts = _kernel_counts()
+    k6a_rec["launches"] = counts["k6a"]
+    k7_rec["launches"] = counts["k7"]
+    if counts["k6a"] == 0 or counts["k7"] != 1:
+        raise AssertionError(f"the HIGHEST path launched {counts}")
     det = _check_detection("1080p HIGHEST", ext, marks, gen)
     if marked.shape != rgb.shape or marked.dtype != torch.uint8:
         raise AssertionError("marked output has the wrong shape or type")
@@ -683,10 +941,7 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict) -> None:
                  - own).abs().max())
     if not gap <= 0.01:
         raise AssertionError(f"extract_prepared is {gap} sigma off")
-    log("highest_path", shape=[48, 1080, 1920], n=N,
-        launches_k6a=k6a_rec["launches"],
-        launches_others=[k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES,
-                         k6.INVERSE_LAUNCHES],
+    log("highest_path", shape=[48, 1080, 1920], n=N, launches=counts,
         extract_bit_equal=True, prepared_max_gap_sigma=gap,
         share_pixels_changed=float((marked != rgb).float().mean()), **det)
 
@@ -821,6 +1076,22 @@ def main() -> int:
     k6a_rec.update(k6a_time)
     k6b_rec.update(k6b_time)
     torch.cuda.empty_cache()
+    k1f_rec = {"name": "fold_pass", "route": "cuda",
+               "source": "spread_spectrum_watermarking_torch/csrc/fold_pass.cu",
+               "replaces": "spread_spectrum_watermarking_tpu/ops/fused_dct.py:277"
+                           " (git 257c497)"}
+    k1fh_rec = dict(k1f_rec, name="fold_pass_high",
+                    replaces=k1f_rec["replaces"] + ", n_dots=3")
+    k1f_default, k1f_high = phase_fold()
+    k1f_rec.update(k1f_default)
+    k1fh_rec.update(k1f_high)
+    torch.cuda.empty_cache()
+    k7_rec = {"name": "add_quantize", "route": "cuda",
+              "source": "spread_spectrum_watermarking_torch/csrc/add_quantize.cu",
+              "replaces": "spread_spectrum_watermarking_tpu/models/pipeline.py:435"
+                          " (an XLA fusion; no pallas_call)"}
+    k7_rec.update(phase_k7())
+    torch.cuda.empty_cache()
     recs = {r["name"]: r for r in (k1_rec, k1h_rec, k4_rec)}
     phase_fast_path(wm.Precision.DEFAULT, recs)
     torch.cuda.empty_cache()
@@ -828,15 +1099,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fast_options()
     torch.cuda.empty_cache()
-    phase_highest(k6a_rec, k6b_rec)
+    phase_highest(k6a_rec, k6b_rec, k7_rec)
     torch.cuda.empty_cache()
     phase_4k()
     log("done", seconds=time.perf_counter() - t0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms")
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
-                                  (k1_rec, k1h_rec, k4_rec, k6a_rec,
-                                   k6b_rec)]}))
+                                  (k1_rec, k1h_rec, k4_rec, k6a_rec, k6b_rec,
+                                   k1f_rec, k1fh_rec, k7_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ functional pipelines in :mod:`.models.pipeline`, with the reference crate's
 surface (``wm::Writer``/``wm::Reader``/``wm::Tester``, reference
 src/lib.rs:81-85, src/algorithm.rs:286-715). Like the JAX package's, they
 take numpy arrays or PIL images and return numpy. The work runs on the
-device named by the keyword ``device`` (``"cpu"`` unless given); it is
-never chosen by probing for a card.
+device named by the keyword ``device``: the CUDA card unless the caller
+passes ``device="cpu"``. It is never chosen by probing, and there is no
+fallback: without a card the default fails with torch's own error.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class Writer:
     """
 
     def __init__(self, image, config: WriteConfig = WriteConfig(), *,
-                 device="cpu"):
+                 device="cuda"):
         self._rgb = _as_rgb_array(image)
         self._config = config
         self._device = torch.device(device)
@@ -103,7 +104,7 @@ class ReaderDerived:
     src/algorithm.rs:448-456)."""
 
     def __init__(self, image, config: ReadConfig = ReadConfig(), *,
-                 device="cpu"):
+                 device="cuda"):
         self._rgb = _as_rgb_array(image)
         self._config = config
         self._device = torch.device(device)
@@ -121,7 +122,7 @@ class Reader:
     """Base-image reader (reference: src/algorithm.rs:441-562)."""
 
     def __init__(self, image, config: ReadConfig = ReadConfig(), *,
-                 device="cpu"):
+                 device="cuda"):
         self._rgb = _as_rgb_array(image)
         self._config = config
         self._device = torch.device(device)
@@ -130,12 +131,12 @@ class Reader:
 
     @staticmethod
     def base(image, config: ReadConfig = ReadConfig(), *,
-             device="cpu") -> "Reader":
+             device="cuda") -> "Reader":
         return Reader(image, config, device=device)
 
     @staticmethod
     def derived(image, config: ReadConfig = ReadConfig(), *,
-                device="cpu") -> ReaderDerived:
+                device="cuda") -> ReaderDerived:
         return ReaderDerived(image, config, device=device)
 
     @property
@@ -210,7 +211,7 @@ class Similarity:
 class Tester:
     """Similarity tester (reference: src/algorithm.rs:683-715)."""
 
-    def __init__(self, extracted_watermark, *, device="cpu"):
+    def __init__(self, extracted_watermark, *, device="cuda"):
         self._extracted = np.asarray(extracted_watermark, dtype=np.float32)
         self._device = torch.device(device)
 

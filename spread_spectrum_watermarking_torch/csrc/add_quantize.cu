@@ -1,0 +1,101 @@
+// K7: the HIGHEST sparse embed's epilogue, fused. u8 RGB plus the luma
+// delta dY, rounded once, clamped, and written as f32 or quantized to u8.
+//
+// Replaces no TPU kernel: on the TPU, as on the CPU, XLA fuses the JAX
+// package's
+//   out = clip(u8_to_f32(rgb) + dy[..., None], 0, 1)   (models/pipeline.py:435)
+//   f32_to_u8(out) = floor(clip(out, 0, 1) * 255 + 0.5)   (:443, ops/colorspace.py:126)
+// and contracts u8 * f32(1/255) + dY into one FMA. This kernel computes
+// exactly that, per subpixel:
+//   v = min(max(fma(float(u), f32(1/255), dy), 0), 1)
+//   f32 out: v;  u8 out: floor((v * 255) + 0.5)
+// with the quantize step's product and sum rounded apart, as jitted JAX and
+// the port's colorspace.f32_to_u8 round them. Every f32 operation is an _rn
+// intrinsic: nvcc contracts a*b + c into an FMA by default (-fmad=true),
+// which would silently change the quantize step.
+//
+// Bound on the H100: at 48x1080x1920 it reads 298.6 MB of u8 and 398.1 MB
+// of dY and writes 298.6 MB of u8 (or 1194 MB of f32), with a few
+// operations a byte: memory bounds it at 0.30 ms (0.56 ms) at 3.35 TB/s.
+// The design moves each byte once: a thread takes four pixels, their 12
+// bytes of u8 as three 4-byte words and their dY as one 16-byte vector,
+// and writes three words (or three 16-byte vectors) back.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kInv255 = 0x1.010102p-8f;  // f32(1 / 255)
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float add_clamped(uint32_t u, float dy) {
+  return fminf(fmaxf(__fmaf_rn(float(u), kInv255, dy), 0.0f), 1.0f);
+}
+
+__device__ __forceinline__ uint32_t quantize(float v) {
+  return uint32_t(floorf(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f)));
+}
+
+// rgb: npix * 3 u8; dy: npix f32; out: npix * 3 u8 (kU8) or f32. `vec`:
+// rgb 4-byte and dy and out 16-byte aligned, so groups of four pixels are
+// read and written as vectors; the rest (and all, without `vec`) one
+// subpixel at a time.
+template <bool kU8>
+__global__ void __launch_bounds__(kThreads)
+add_quantize_kernel(const uint8_t* __restrict__ rgb,
+                    const float* __restrict__ dy, void* __restrict__ out,
+                    long long npix, bool vec) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long groups = vec ? npix / 4 : 0;
+  for (long long g = first; g < groups; g += stride) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(rgb) + 3 * g;
+    const float4 d4 = reinterpret_cast<const float4*>(dy)[g];
+    const float d[4] = {d4.x, d4.y, d4.z, d4.w};
+    const uint32_t words[3] = {src[0], src[1], src[2]};
+    float v[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i)
+      v[i] = add_clamped((words[i / 4] >> (8 * (i % 4))) & 255u, d[i / 3]);
+    if (kU8) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out) + 3 * g;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        dst[k] = quantize(v[4 * k]) | quantize(v[4 * k + 1]) << 8
+                 | quantize(v[4 * k + 2]) << 16 | quantize(v[4 * k + 3]) << 24;
+    } else {
+      float4* dst = reinterpret_cast<float4*>(out) + 3 * g;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        dst[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    }
+  }
+  // The subpixels after the last whole group.
+  for (long long i = 12 * groups + first; i < 3 * npix; i += stride) {
+    const float val = add_clamped(rgb[i], dy[i / 3]);
+    if (kU8) reinterpret_cast<uint8_t*>(out)[i] = uint8_t(quantize(val));
+    else reinterpret_cast<float*>(out)[i] = val;
+  }
+}
+
+}  // namespace
+
+// rgb: (npix, 3) u8, contiguous; dy: (npix,) f32, contiguous; out: (npix, 3)
+// u8 when `u8_out`, else f32. Returns the launch's CUDA error code (0 when
+// it was accepted).
+extern "C" int ssw_add_quantize(const uint8_t* rgb, const float* dy, void* out,
+                                long long npix, int u8_out,
+                                cudaStream_t stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(rgb) % 4 == 0
+                   && reinterpret_cast<uintptr_t>(dy) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long work = vec ? npix / 4 + 3 * (npix % 4) : 3 * npix;
+  const long long blocks_needed = (work + kThreads - 1) / kThreads;
+  const int blocks = int(blocks_needed < 132 * 16 ? blocks_needed : 132 * 16);
+  if (blocks == 0) return int(cudaSuccess);
+  if (u8_out)
+    add_quantize_kernel<true><<<blocks, kThreads, 0, stream>>>(rgb, dy, out, npix, vec);
+  else
+    add_quantize_kernel<false><<<blocks, kThreads, 0, stream>>>(rgb, dy, out, npix, vec);
+  return int(cudaGetLastError());
+}

@@ -13,6 +13,12 @@
 // The accumulator lands in shared memory as f32 for the kernel's own
 // epilogue. There are no atomics: every output element is summed by one
 // warp in a fixed order, so results repeat bit for bit from run to run.
+//
+// A split stage (K1f's folded pass) holds a second A tile (kSplitA), read
+// by the warps of the tile's right half (columns BN/2..BN), or a second B
+// tile (kSplitB), read by the warps of its lower half (rows BM/2..BM): one
+// block then computes two products of half the tile each, the even and the
+// odd outputs of the same range.
 #pragma once
 
 #include <cstdint>
@@ -30,17 +36,20 @@ constexpr int LDA = BK + 8;    // bf16 pitches: multiples of 8 for wmma
 constexpr int LDB = BN + 8;
 constexpr int LDC = BN + 4;    // f32 pitch: a multiple of 4
 
-template <int kParts>
+enum Split { kNoSplit = 0, kSplitA = 1, kSplitB = 2 };
+
+template <int kParts, int kSplit = kNoSplit>
 struct StageT {
-  __nv_bfloat16 a[kParts][BM * LDA];
-  __nv_bfloat16 b[kParts][BK * LDB];
+  __nv_bfloat16 a[kParts][(kSplit == kSplitA ? 2 : 1) * BM * LDA];
+  __nv_bfloat16 b[kParts][(kSplit == kSplitB ? 2 : 1) * BK * LDB];
 };
 
 // Above the 48 KB of static shared memory (103 KB with one part, 140 KB
-// with two), so kernels take it as dynamic shared memory (set_smem_limit).
-template <int kParts>
+// with two; 120-180 KB split), so kernels take it as dynamic shared memory
+// (set_smem_limit).
+template <int kParts, int kSplit = kNoSplit>
 struct __align__(128) TileSmemT {
-  StageT<kParts> st[2];
+  StageT<kParts, kSplit> st[2];
   float c[BM * LDC];
 };
 
@@ -84,16 +93,20 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst,
 }
 
 // Runs the k loop over [0, kdim) and leaves the f32 tile in s.c.
-// load(StageT<kParts>& st, int k0) fills st with the tiles of k-step k0.
-template <int kParts, class Loader>
-__device__ __forceinline__ void tile_product(TileSmemT<kParts>& s, int kdim,
-                                             const Loader& load) {
+// load(StageT<kParts, kSplit>& st, int k0) fills st with the tiles of
+// k-step k0.
+template <int kParts, int kSplit, class Loader>
+__device__ __forceinline__ void tile_product(TileSmemT<kParts, kSplit>& s,
+                                             int kdim, const Loader& load) {
   using namespace nvcuda;
   // Products per k-step: a*b, or hi*hi, hi*lo and lo*hi.
   constexpr int kProducts = kParts == 1 ? 1 : 3;
   const int warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 32;
   const int wn = (warp % 2) * 64;
+  // Where this warp's operands start in a split stage.
+  const int a_off = kSplit == kSplitA && wn >= BN / 2 ? BM * LDA : 0;
+  const int b_off = kSplit == kSplitB && wm >= BM / 2 ? BK * LDB : 0;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -106,13 +119,13 @@ __device__ __forceinline__ void tile_product(TileSmemT<kParts>& s, int kdim,
   for (int k0 = 0; k0 < kdim; k0 += BK) {
     // The buffer written here was last read before the previous barrier.
     if (k0 + BK < kdim) load(s.st[cur ^ 1], k0 + BK);
-    const StageT<kParts>& st = s.st[cur];
+    const StageT<kParts, kSplit>& st = s.st[cur];
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
 #pragma unroll
       for (int p = 0; p < kProducts; ++p) {
-        const __nv_bfloat16* a = st.a[p == 2 ? 1 : 0];
-        const __nv_bfloat16* b = st.b[p == 1 ? 1 : 0];
+        const __nv_bfloat16* a = st.a[p == 2 ? 1 : 0] + a_off;
+        const __nv_bfloat16* b = st.b[p == 1 ? 1 : 0] + b_off;
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> fa[2];
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,

@@ -31,14 +31,21 @@ on the card as follows:
 
 Float images, float output (``quantize=False``), the full inverse
 (``sparse_idct=False``) and the prepared base/derived pair run the JAX
-package's XLA forms as plain PyTorch ops at the fast tiers: the TPU kernels
-took u8 images only. At both fast tiers Writer and Reader agree bit for bit
+package's XLA forms as plain PyTorch ops at the fast tiers (a u8 image's
+float output through kernel K7's f32 mode): the TPU kernels took u8
+images only. At both fast tiers Writer and Reader agree bit for bit
 because both rank the base image through the same deterministic code (no
 atomics on the path).
 
+The HIGHEST sparse embed adds dY to a u8 image with the sum rounded once,
+as XLA's FMA rounds it: kernel K7 (``..kernels.add_quantize``), quantized
+in the same pass, or in its f32 mode (``colorspace.add_luma_delta_f32``)
+with ``quantize=False``, as for the fast tiers' u8 float output.
+
 Not ported yet, and raising ``NotImplementedError`` rather than taking
 another path (ROADMAP.md): custom insert, extract and ordering callables;
-rank generation 1; the folded transforms (``dct.dct2_2d(fold=True)``).
+rank generation 1. No pipeline folds (``dct.dct2_2d(fold=True)``, kernel
+K1f), as no JAX pipeline does.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Tuple
 import torch
 
 from ..config import Method, Precision, ReadConfig, WriteConfig
+from ..kernels.add_quantize import add_quantize
 from ..kernels.dct2d_fused import inverse_scale
 from ..kernels.embed_epilogue import delta_plane, embed_epilogue
 from ..kernels.luma_pass import luma_pass
@@ -235,6 +243,9 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
     if sparse_idct:
         dy = _sparse_idct_delta(new_values - original, idx, h, w,
                                 Precision.HIGHEST)
+        if quantize and rgb.dtype == torch.uint8:
+            # Kernel K7 in its u8 mode: no f32 RGB reaches device memory.
+            return add_quantize(rgb.contiguous(), dy, True), idx, original
         out = colorspace.add_luma_delta_f32(rgb, dy)
     else:
         # The reference's Writer::result: the full inverse of the changed

@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels import add_quantize
+
 # colorsys matrices (reference: src/yiq.rs:155-165), as the f32 values the
 # JAX package multiplies by.
 _RGB_TO_YIQ = np.array([[0.30, 0.59, 0.11],
@@ -156,23 +158,17 @@ def add_luma_delta_f32(rgb: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
     ``clip(u8_to_f32(rgb) + dy, 0, 1)``, as the jitted JAX epilogues compute
     it: for u8 images XLA contracts ``u8 * f32(1/255) + dy`` into one FMA,
-    so the sum is rounded once (:func:`_fma_f32`). Float images add in f32.
-    Y is the only modified plane and the Y column of YIQ->RGB is [1, 1, 1]
-    (reference src/yiq.rs:161-165).
-
-    On a CUDA tensor a u8 image takes the product and the sum rounded
-    apart: the f64 emulation of the FMA costs several times the whole
-    stage there (PERF.md), and the two forms differ by one u8 step in a
-    few subpixels per million.
+    so the sum is rounded once: kernel K7 in its f32 mode on a CUDA tensor
+    (``..kernels.add_quantize``), its plain version (:func:`_fma_f32`) on
+    the CPU. Float images add in f32. Y is the only modified plane and the
+    Y column of YIQ->RGB is [1, 1, 1] (reference src/yiq.rs:161-165).
     """
-    d = dy.to(torch.float32)[..., None]
-    if rgb.dtype == torch.uint8 and rgb.device.type == "cpu":
-        out = _fma_f32(rgb, _INV255, d)
-    elif rgb.dtype == torch.uint8:
-        out = u8_to_f32(rgb) + d
-    else:
-        out = rgb.to(torch.float32) + d
-    return torch.clamp(out, 0.0, 1.0)
+    if rgb.dtype == torch.uint8:
+        return add_quantize.add_quantize(
+            rgb.contiguous(), dy.to(torch.float32).contiguous(),
+            quantize=False)
+    return torch.clamp(rgb.to(torch.float32) + dy.to(torch.float32)[..., None],
+                       0.0, 1.0)
 
 
 def add_luma_delta_u8(rgb_u8: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,14 @@ product goes through :func:`matmul`, which says what each tier computes:
   reduction turned off (:func:`matmul_bf16`): by default cuBLAS may add
   split-K partial sums in bf16.
 
-At DEFAULT and HIGH the 2-D transforms are these plain products on every
-device, as the JAX package leaves them to XLA. ``fold=True`` (the folded
-transforms, ROADMAP Queue 2 K1f) raises ``NotImplementedError``.
+At DEFAULT and HIGH the dense 2-D transforms are these plain products on
+every device, as the JAX package leaves them to XLA. ``fold=True`` takes
+the folded transforms under the JAX package's condition (H and W even,
+``min(H, W) >= 64``; otherwise the dense form): at DEFAULT and HIGH the
+forward transform's two folded passes are kernel K1f on a CUDA tensor
+(``..kernels.fold_pass``) and their plain versions, :func:`_fold_pass_rows`
+and :func:`_fold_pass_cols`, on the CPU; at HIGHEST, and for the inverse
+at every tier, the fold is plain products on every device.
 """
 
 from __future__ import annotations
@@ -32,11 +37,7 @@ import numpy as np
 import torch
 
 from ..config import Precision
-from ..kernels import dct2d_fused
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+from ..kernels import dct2d_fused, fold_pass
 
 
 @functools.lru_cache(maxsize=64)
@@ -162,9 +163,66 @@ def shorter_axis(h: int, w: int) -> int:
     return -2 if h <= w else -1
 
 
-def _refuse_fold(fold: bool) -> None:
-    if fold:
-        raise _not_ported("fold=True (the folded pass, Queue 2 K1f)")
+def _fold_pass_rows(x: torch.Tensor, c_full: torch.Tensor,
+                    precision: Precision) -> torch.Tensor:
+    """One DCT-II pass contracting the -2 axis, with even/odd folding (the
+    JAX package's ``dct._fold_pass_rows``).
+
+    The symmetry ``C[k, N-1-m] = (-1)^k C[k, m]``: even output rows contract
+    ``s = x[m] + x[N-1-m]``, odd rows ``d = x[m] - x[N-1-m]``, each against
+    an (N/2, N/2) half of the basis, half the operations of the dense pass.
+    ``s`` and ``d`` are formed in f32 first; the products round them to the
+    tier (:func:`matmul`). Rows ``2q`` and ``2q+1`` take the q-th rows of
+    the two products.
+    """
+    n = x.shape[-2]
+    half = n // 2
+    a = x[..., :half, :]
+    b = torch.flip(x[..., half:, :], dims=(-2,))
+    te = matmul(c_full[0::2, :half], a + b, precision)
+    to = matmul(c_full[1::2, :half], a - b, precision)
+    return torch.stack([te, to], dim=-2).reshape(*x.shape[:-2], n,
+                                                 x.shape[-1])
+
+
+def _fold_pass_cols(x: torch.Tensor, c_full: torch.Tensor,
+                    precision: Precision) -> torch.Tensor:
+    """:func:`_fold_pass_rows` contracting the last axis (the JAX package's
+    ``dct._fold_pass_cols``)."""
+    n = x.shape[-1]
+    half = n // 2
+    a = x[..., :half]
+    b = torch.flip(x[..., half:], dims=(-1,))
+    ue = matmul(a + b, c_full[0::2, :half].t(), precision)
+    uo = matmul(a - b, c_full[1::2, :half].t(), precision)
+    return torch.stack([ue, uo], dim=-1).reshape(*x.shape[:-1], n)
+
+
+def _ifold_pass_rows(x: torch.Tensor, d_full: torch.Tensor,
+                     precision: Precision) -> torch.Tensor:
+    """Folded DCT-III pass over the -2 axis (the JAX package's
+    ``dct._ifold_pass_rows``): with ``D[N-1-k, m] = (-1)^m D[k, m]``, the
+    top half of the output is ``E + O`` and the bottom half the reversed
+    ``E - O``, E and O contracting the even and the odd input rows, each
+    sum formed in f32 after both products."""
+    half = x.shape[-2] // 2
+    e = matmul(d_full[:half, 0::2], x[..., 0::2, :], precision)
+    o = matmul(d_full[:half, 1::2], x[..., 1::2, :], precision)
+    return torch.cat([e + o, torch.flip(e - o, dims=(-2,))], dim=-2)
+
+
+def _ifold_pass_cols(x: torch.Tensor, d_full: torch.Tensor,
+                     precision: Precision) -> torch.Tensor:
+    """Folded DCT-III pass over the last axis (``dct._ifold_pass_cols``)."""
+    half = x.shape[-1] // 2
+    e = matmul(x[..., 0::2], d_full[:half, 0::2].t(), precision)
+    o = matmul(x[..., 1::2], d_full[:half, 1::2].t(), precision)
+    return torch.cat([e + o, torch.flip(e - o, dims=(-1,))], dim=-1)
+
+
+def _folds(h: int, w: int, fold: bool) -> bool:
+    """The JAX package's condition for the folded transforms."""
+    return fold and h % 2 == 0 and w % 2 == 0 and min(h, w) >= 64
 
 
 def dct2_2d(x: torch.Tensor, *, ortho: bool = False,
@@ -176,13 +234,23 @@ def dct2_2d(x: torch.Tensor, *, ortho: bool = False,
     HIGHEST: a CUDA tensor runs kernel K6a, a CPU tensor its plain version.
     DEFAULT and HIGH: two :func:`matmul` products at the tier (at DEFAULT
     the f32 intermediate is rounded to bf16 as the second operand).
+    ``fold`` (where :func:`_folds`): the rows pass, then the cols pass, each
+    folded: kernel K1f at DEFAULT and HIGH on a CUDA tensor, plain products
+    at HIGHEST and on the CPU.
     """
-    _refuse_fold(fold)
-    if precision is Precision.HIGHEST:
-        return dct2d_fused.dct2_2d_fused(x, ortho=ortho)
     h, w = x.shape[-2], x.shape[-1]
+    folds = _folds(h, w, fold)
+    if (folds and precision is not Precision.HIGHEST
+            and x.device.type != "cpu"):
+        t = fold_pass.fold_pass(x, -2, ortho, precision)
+        return fold_pass.fold_pass(t, -1, ortho, precision)
+    if precision is Precision.HIGHEST and not folds:
+        return dct2d_fused.dct2_2d_fused(x, ortho=ortho)
     ch = basis_tensor(h, x.device, torch.float32, ortho=ortho)
     cw = basis_tensor(w, x.device, torch.float32, ortho=ortho)
+    if folds:  # the plain folded passes (K1f's plain version on the CPU)
+        return _fold_pass_cols(_fold_pass_rows(x, ch, precision), cw,
+                               precision)
     return matmul(matmul(ch, x, precision), cw.t(), precision)
 
 
@@ -190,14 +258,20 @@ def idct2_2d(x: torch.Tensor, *, precision: Precision = Precision.HIGHEST,
              fold: bool = False) -> torch.Tensor:
     """Inverse of :func:`dct2_2d` (non-ortho): ``(D_h @ X) @ D_w^T`` times
     ``f32(4/(W*H))``. HIGHEST: a CUDA tensor runs kernel K6b, a CPU tensor
-    its plain version; DEFAULT and HIGH: :func:`matmul` at the tier."""
-    _refuse_fold(fold)
-    if precision is Precision.HIGHEST:
-        return dct2d_fused.idct2_2d_fused(x)
+    its plain version; DEFAULT and HIGH: :func:`matmul` at the tier.
+    ``fold`` (where :func:`_folds`): the two folded passes as plain products
+    at the tier on every device, then the scale."""
     h, w = x.shape[-2], x.shape[-1]
+    folds = _folds(h, w, fold)
+    if precision is Precision.HIGHEST and not folds:
+        return dct2d_fused.idct2_2d_fused(x)
     dh = basis_tensor(h, x.device, torch.float32, inverse=True)
     dw = basis_tensor(w, x.device, torch.float32, inverse=True)
-    y = matmul(matmul(dh, x, precision), dw.t(), precision)
+    if folds:
+        y = _ifold_pass_cols(_ifold_pass_rows(x, dh, precision), dw,
+                             precision)
+    else:
+        y = matmul(matmul(dh, x, precision), dw.t(), precision)
     return y * dct2d_fused.inverse_scale(h, w)
 
 

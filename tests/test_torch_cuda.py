@@ -11,8 +11,10 @@ import pytest
 import torch
 
 import spread_spectrum_watermarking_torch as tw
+from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
 from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
+from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 from spread_spectrum_watermarking_torch.models import pipeline as tp
 from spread_spectrum_watermarking_torch.ops import colorspace, dct
@@ -114,7 +116,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k4.embed_epilogue(rgb, a.cpu(), b)  # factor on another device
 
 
-
 def _k6_bound(x, inverse, ortho=False):
     """2 (H + W) u |L| |X| |R|^T (one more rounding for K6b's scale): two
     f32 sums of H and W terms taken in another order than cuBLAS's."""
@@ -197,3 +198,97 @@ def test_dct2d_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         k6.dct2_2d_fused(x.transpose(1, 2))  # not contiguous
     with pytest.raises(ValueError):
         k6.idct2_2d_fused(x[:0])  # empty
+
+
+@pytest.mark.parametrize("precision", [tw.Precision.DEFAULT,
+                                       tw.Precision.HIGH])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("h,w", [(64, 128), (128, 64), (96, 160),
+                                 (100, 132), (66, 98)])
+def test_fold_pass_kernel_matches_plain(cuda, precision, axis, h, w):
+    # Products of bf16 values are exact, so only the order of the f32 sums
+    # differs: 2 K u sum |c| |v|, K = N/2 terms (3N/2 at HIGH). Once from an
+    # aligned start and once from a view one float in (the scalar loads).
+    gen = torch.Generator(device=cuda).manual_seed(h * w + axis)
+    buf = torch.randn((2 * h * w + 1,), generator=gen, device=cuda)
+    high = precision is tw.Precision.HIGH
+    for x in (buf[:-1].view(2, h, w), buf[1:].view(2, h, w)):
+        before = (k1f.LAUNCHES, k1f.HIGH_LAUNCHES)
+        t = k1f.fold_pass(x, axis, precision=precision)
+        torch.cuda.synchronize()
+        assert (k1f.LAUNCHES, k1f.HIGH_LAUNCHES) == \
+            (before[0] + (not high), before[1] + high)
+        assert t.dtype == torch.float32 and t.shape == x.shape
+        r = k1f.fold_pass_reference(x, axis, precision=precision)
+        k = x.shape[axis] // 2 * (3 if high else 1)
+        bound = 2 * k * 2.0 ** -24 * k1f.fold_terms(x, axis, precision)
+        assert bool(((t - r).abs() <= bound).all())
+
+
+def test_folded_transforms_launch_k1f_at_the_fast_tiers(cuda):
+    x = torch.rand((2, 64, 96), device=cuda)
+    for p, launches in ((tw.Precision.DEFAULT, (2, 0)),
+                        (tw.Precision.HIGH, (0, 2)),
+                        (tw.Precision.HIGHEST, (0, 0))):
+        before = (k1f.LAUNCHES, k1f.HIGH_LAUNCHES)
+        c = dct.dct2_2d(x, precision=p, fold=True)
+        back = dct.idct2_2d(c, precision=p, fold=True)  # plain products
+        torch.cuda.synchronize()
+        assert (k1f.LAUNCHES - before[0], k1f.HIGH_LAUNCHES - before[1]) \
+            == launches
+        tol = 0.1 if p is tw.Precision.DEFAULT else 1e-4
+        assert float((back - x).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("npix", [4 * 37 * 59, 37 * 59, 1])
+def test_add_quantize_kernel_bit_equal_to_plain(cuda, npix):
+    # Both correctly rounded: bit for bit, in both modes, with whole groups
+    # of four pixels, a tail, and a misaligned start (the scalar path).
+    gen = torch.Generator(device=cuda).manual_seed(npix)
+    rgb = torch.randint(0, 256, (npix + 1, 3), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    dy = torch.randn((npix + 1,), generator=gen, device=cuda) * 0.02
+    for r, d in ((rgb[:npix], dy[:npix]), (rgb[1:], dy[1:])):
+        for quantize in (False, True):
+            before = k7.LAUNCHES
+            t = k7.add_quantize(r, d, quantize)
+            torch.cuda.synchronize()
+            assert k7.LAUNCHES == before + 1
+            want = k7.add_quantize_reference(r, d, quantize)
+            assert t.dtype == want.dtype and torch.equal(
+                t.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_highest_embed_launches_add_quantize_once(cuda):
+    rng = np.random.default_rng(7)
+    rgb = torch.from_numpy(rng.integers(0, 256, (2, 64, 96, 3),
+                                        dtype=np.uint8)).to(cuda)
+    marks = torch.from_numpy(rng.standard_normal((2, 1, 100)).astype(
+        np.float32)).to(cuda)
+    before = k7.LAUNCHES
+    marked, _ = tw.embed_verified(rgb, marks)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES == before + 1 and marked.dtype == torch.uint8
+    out = tw.embed(rgb, marks, quantize=False)  # K7's f32 mode
+    assert k7.LAUNCHES == before + 2 and out.dtype == torch.float32
+    assert torch.equal(colorspace.f32_to_u8(out), marked)
+
+
+def test_fold_and_add_quantize_wrappers_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 64, 96), device=cuda)
+    with pytest.raises(ValueError):
+        k1f.fold_pass(x.transpose(1, 2), -2)  # not contiguous
+    with pytest.raises(ValueError):
+        k1f.fold_pass(x.double(), -1)  # not f32
+    with pytest.raises(ValueError):
+        k1f.fold_pass(x[:, :63], -2)  # odd length
+    rgb = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=cuda)
+    dy = torch.zeros((2, 8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        k7.add_quantize(rgb.transpose(1, 2), dy, True)  # not contiguous
+    with pytest.raises(ValueError):
+        k7.add_quantize(rgb, dy.double(), True)  # dY not f32
+    with pytest.raises(ValueError):
+        k7.add_quantize(rgb.float(), dy, False)  # image not u8
+    with pytest.raises(ValueError):
+        k7.add_quantize(rgb, dy.cpu(), True)  # CPU/CUDA mix

@@ -104,14 +104,17 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_unported_tiers_and_fold_raise():
-    # Every tier is ported (DEFAULT and HIGH: tests/test_torch_dct_high.py);
-    # the folded transforms (K1f) still raise at each, naming ROADMAP.
+    # Nothing raises any more: every tier is ported (DEFAULT and HIGH:
+    # tests/test_torch_dct_high.py), and so are the folded transforms (K1f),
+    # which run at each tier and keep the f32 transform's round trip
+    # (tests/test_torch_fold.py holds them to JAX).
     x = torch.from_numpy(_x(7, 64, 64))
     for p in Precision:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            td.dct2_2d(x, precision=p, fold=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            td.idct2_2d(x, precision=p, fold=True)
+        c = td.dct2_2d(x, precision=p, fold=True)
+        assert c.shape == x.shape and c.dtype == torch.float32
+        back = td.idct2_2d(c, precision=p, fold=True)
+        tol = 0.1 if p is Precision.DEFAULT else 1e-4
+        torch.testing.assert_close(back, x, rtol=0, atol=tol)
         assert td.dct2_2d(x, precision=p).shape == x.shape
         assert td.idct2_2d(x, precision=p).shape == x.shape
 
