@@ -15,9 +15,13 @@ Phases, one line of output each, any failure exits non-zero:
    path's 1080p batch 48, with every mode's time and its plain version's;
 3. K4 (embed epilogue) against its plain version at 1080p, n = 1000,
    batches 4 and 48, and both times at batch 48;
-4. K6a/K6b (the 2-D DCT and its inverse, f32) against their plain versions
-   at 444x640, 640x444, 37x59, 48x1080x1920, 1920x1080 and 2x2160x3840,
-   and both times at 48x1080x1920;
+4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
+   against their plain versions at 444x640, 640x444, 37x59, 48x1080x1920,
+   1920x1080 and 2x2160x3840; K6a's top-1000 ranking against the plain
+   version's on a 48x1080p 1/f-texture luma batch; both kernels' and the
+   plain versions' errors against an f64 product at 48x1080x1920; their
+   times beside the plain version's and one einsum's at 48x1080x1920 and
+   2x2160x3840;
 4b. K1f (the folded DCT pass) against its plain version at 4x1080x1920,
    4x1920x1080, 2x64x128 and 2x2160x3840, at DEFAULT and HIGH, both
    orientations; then at 48x1080x1920 and each tier ``dct2_2d(fold=True)``
@@ -76,9 +80,10 @@ SIGMA = 6.0
 # each of the two sums). It matters only for outputs near zero, where the
 # sum cancels; the script prints how much of the bound was used.
 F32_U = 2.0 ** -24
-# One H100 SXM (NVIDIA's data sheet, dense): bf16 tensor-core and f32
-# (outside the tensor cores) peaks, FLOP/s, and the memory rate, bytes/s.
+# One H100 SXM (NVIDIA's data sheet, dense): bf16 and TF32 tensor-core and
+# f32 (outside the tensor cores) peaks, FLOP/s, and the memory rate, bytes/s.
 BF16_PEAK = 989e12
+TF32_PEAK = 495e12
 F32_PEAK = 67e12
 HBM_RATE = 3.35e12
 
@@ -315,25 +320,10 @@ def phase_k4() -> dict:
             "library_ms": None, **bd}
 
 
-def abs_transform(x, inverse: bool):
-    """|L| |X| |R|^T (times the inverse's scale): the scale of the f32 sums
-    of a 2-D transform of ``x``."""
-    import torch
-
-    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
-    from spread_spectrum_watermarking_torch.ops import dct
-
-    h, w = x.shape[-2:]
-    left = dct.basis_tensor(h, x.device, torch.float32, inverse).abs()
-    right = dct.basis_tensor(w, x.device, torch.float32, inverse).abs()
-    scale = k6.inverse_scale(h, w) if inverse else 1.0
-    return scale * dct.matmul_f32(dct.matmul_f32(left, x.abs()), right.t())
-
-
-def _compare_k6(x, inverse: bool) -> tuple[float, float]:
+def _compare_k6(x, inverse: bool) -> float:
     """K6a (or K6b) on ``x`` against its plain version; logs, raises outside
-    the gamma bound 2 (H + W) u |L| |X| |R|^T (one more rounding for K6b's
-    scale), returns (max |err|, share of the bound used)."""
+    ``k6_bound`` (two f32 sums in another order, the TF32 split, K6b's
+    scale), returns max |err|."""
     import torch
 
     from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
@@ -345,22 +335,82 @@ def _compare_k6(x, inverse: bool) -> tuple[float, float]:
     torch.cuda.synchronize()
     d = (t - plain(x)).abs()
     del t
-    terms = 2 * (h + w + int(inverse))
-    used = float((d / (F32_U * abs_transform(x, inverse))).max())
+    used = float((d / k6.k6_bound(x, inverse)).max())
     name = "k6b" if inverse else "k6a"
     log(name, shape=[b, h, w], max_abs_err=float(d.max()),
         share_differing=float((d > 0).float().mean()),
-        max_err_in_u_sum_abs=used, bound_in_u_sum_abs=terms,
-        share_of_bound_used=used / terms)
-    if not used <= terms:
-        raise AssertionError(f"{name} {b}x{h}x{w}: outside the gamma bound")
-    return float(d.max()), used / terms
+        share_of_bound_used=used)
+    if not used <= 1.0:
+        raise AssertionError(f"{name} {b}x{h}x{w}: outside k6_bound")
+    return float(d.max())
 
 
-def phase_k6() -> tuple[dict, dict]:
+def _k6_f64_errors(x, inverse: bool) -> dict:
+    """The largest error of K6a (K6b) and of its plain version (f32
+    cuBLAS) against the f64 product of the same f32 bases (and f32 scale),
+    in units of 2^-24 s |L| |X| |R|^T."""
     import torch
 
     from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    h, w = x.shape[-2:]
+    left, right = (dct.basis_tensor(n, x.device, torch.float32, inverse).double()
+                   for n in (h, w))
+    scale = k6.inverse_scale(h, w) if inverse else 1.0
+    exact = torch.matmul(torch.matmul(left, x.double()), right.t()) * scale
+    unit = F32_U * k6.abs_transform(x, inverse)
+    kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
+    plain = k6.idct2_2d_fused_reference if inverse else k6.dct2_2d_fused_reference
+    out = {f"{name}_max_err_in_u_sum_abs":
+           float(((fn(x).double() - exact).abs() / unit).max())
+           for name, fn in (("kernel", kernel), ("plain", plain))}
+    del exact, unit
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k6_ranking(y) -> dict:
+    """top_indices(K6a(y), N) against top_indices(plain(y), N) on a luma
+    batch: the share of (image, rank) positions that agree, raising below
+    0.99 or where a disagreement is not a near-tie. Sorted lists of two
+    planes within d of each other differ by at most d at every rank, so
+    the |coefficients| of the plain plane at two disagreeing indices are
+    within 2 d, d the image's largest ``k6_bound``."""
+    from spread_spectrum_watermarking_torch import Ordering
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.ops import ranking
+
+    b = y.shape[0]
+    ck, cp = k6.dct2_2d_fused(y), k6.dct2_2d_fused_reference(y)
+    ik = ranking.top_indices(ck, N, Ordering.ENERGY)
+    ip = ranking.top_indices(cp, N, Ordering.ENERGY)
+    del ck
+    differ = ik != ip
+    delta = k6.k6_bound(y).reshape(b, -1).amax(1, keepdim=True)
+    mag = cp.reshape(b, -1).abs()
+    gap = (mag.gather(1, ik) - mag.gather(1, ip)).abs() / delta
+    out = {"share_positions_equal": float((~differ).float().mean()),
+           "positions_differing": int(differ.sum()),
+           "max_gap_in_bounds": float(gap[differ].max()) if bool(differ.any())
+           else 0.0,
+           "not_near_ties": int((differ & (gap > 2.0)).sum())}
+    log("k6_ranking", shape=list(y.shape), n=N, **out)
+    if out["share_positions_equal"] < 0.99 or out["not_near_ties"]:
+        raise AssertionError(f"K6a's ranking differs from its plain version's: "
+                             f"{out}")
+    return out
+
+
+def phase_k6() -> tuple[dict, dict]:
+    """K6a/K6b against their plain versions at six geometries, their f64
+    errors and K6a's ranking at 48 x 1080p, their times beside the plain
+    version's and one einsum's, at 48 x 1080p and 2 x 4K: the records of
+    ``dct2_2d_fused`` and ``idct2_2d_fused``."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
+    from spread_spectrum_watermarking_torch.ops import colorspace, dct
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {False: 0.0, True: 0.0}
@@ -369,33 +419,58 @@ def phase_k6() -> tuple[dict, dict]:
         # Luma-like planes in [0, 1]; K6b takes them as coefficients.
         x = torch.rand((b, h, w), generator=gen, device="cuda")
         for inverse in (False, True):
-            err, _ = _compare_k6(x, inverse)
-            worst[inverse] = max(worst[inverse], err)
+            worst[inverse] = max(worst[inverse], _compare_k6(x, inverse))
         del x
         torch.cuda.empty_cache()
-    x = torch.rand((48, 1080, 1920), generator=gen, device="cuda")
-    b, h, w = x.shape
-    # Two f32 products on the SIMT units; f32 in and out, the f32 bases.
-    bd = bound(2 * b * (h * h * w + h * w * w),
-               8 * b * h * w + 4 * (h * h + w * w), F32_PEAK)
+    _k6_ranking(colorspace.luma(textures(15, 48, 1080, 1920)))
+    torch.cuda.empty_cache()
+
+    def einsum(x, inverse):
+        """One library call computing the same function (K6b's scale folded
+        into D_h), f32 with TF32 off."""
+        h, w = x.shape[-2:]
+        left, right = (dct.basis_tensor(n, x.device, torch.float32, inverse)
+                       for n in (h, w))
+        if inverse:
+            left = left * k6.inverse_scale(h, w)
+
+        def call():
+            with dct._f32_sums():
+                return torch.einsum("hk,bkw,lw->bhl", left, x, right)
+        return call
+
     recs = []
-    for inverse in (False, True):
-        kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
-        plain = (k6.idct2_2d_fused_reference if inverse
-                 else k6.dct2_2d_fused_reference)
-        recs.append({"max_abs_err": worst[inverse],
-                     "ms": time_ms(lambda: kernel(x), 5),
-                     "plain_ms": time_ms(lambda: plain(x), 5),
-                     "library_ms": None, **bd})
-    log("k6_time", shape=[48, 1080, 1920], k6a_ms=recs[0]["ms"],
-        k6a_plain_ms=recs[0]["plain_ms"], k6b_ms=recs[1]["ms"],
-        k6b_plain_ms=recs[1]["plain_ms"], **bd,
-        k6a_tflops=2 * 48 * (1080 * 1080 * 1920 + 1080 * 1920 * 1920)
-        / (recs[0]["ms"] * 1e9))
-    x4 = torch.rand((2, 2160, 3840), generator=gen, device="cuda")
-    log("k6_time", shape=[2, 2160, 3840],
-        k6a_ms=time_ms(lambda: k6.dct2_2d_fused(x4), 3),
-        k6a_plain_ms=time_ms(lambda: k6.dct2_2d_fused_reference(x4), 3))
+    for shape, reps in (((48, 1080, 1920), 5), ((2, 2160, 3840), 3)):
+        x = torch.rand(shape, generator=gen, device="cuda")
+        b, h, w = shape
+        macs = b * (h * h * w + h * w * w)
+        # Three TF32 products per multiply-add on the tensor cores; f32 in
+        # and out, the bases' two parts. Beside it, the f32 SIMT bound of
+        # the two-product form (the design before 3xTF32).
+        bd = bound(3 * 2 * macs, 8 * b * h * w + 8 * (h * h + w * w), TF32_PEAK)
+        simt = bound(2 * macs, 8 * b * h * w + 4 * (h * h + w * w), F32_PEAK)
+        fields = {}
+        for inverse in (False, True):
+            tag = "k6b" if inverse else "k6a"
+            kernel = k6.idct2_2d_fused if inverse else k6.dct2_2d_fused
+            plain = (k6.idct2_2d_fused_reference if inverse
+                     else k6.dct2_2d_fused_reference)
+            if b == 48:
+                fields.update({f"{tag}_f64_{k}": v for k, v in
+                               _k6_f64_errors(x, inverse).items()})
+            rec = {"ms": time_ms(lambda: kernel(x), reps),
+                   "plain_ms": time_ms(lambda: plain(x), reps),
+                   "library_ms": time_ms(einsum(x, inverse), reps), **bd}
+            fields.update({f"{tag}_{k}": rec[k]
+                           for k in ("ms", "plain_ms", "library_ms")})
+            fields[f"{tag}_share_of_tf32_peak"] = bd["bound_ms"] / rec["ms"]
+            if b == 48:
+                recs.append({"max_abs_err": worst[inverse], **rec})
+        log("k6_time", shape=list(shape), **bd,
+            f32_simt_bound_ms=simt["bound_ms"],
+            library="einsum hk,bkw,lw->bhl, f32, TF32 off", **fields)
+        del x
+        torch.cuda.empty_cache()
     return recs[0], recs[1]
 
 
@@ -439,6 +514,7 @@ def _fold_transform_checks(x, precision) -> dict:
     import torch
 
     from spread_spectrum_watermarking_torch import Precision
+    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
     from spread_spectrum_watermarking_torch.ops import dct
 
     b, h, w = x.shape
@@ -456,11 +532,11 @@ def _fold_transform_checks(x, precision) -> dict:
         raise AssertionError(f"dct2_2d(fold=True) at {precision.value} "
                              f"launched {counts}")
     dense = dct.dct2_2d(x, precision=precision)
-    fwd = float(((c - dense).abs() / abs_transform(x, False)).max())
+    fwd = float(((c - dense).abs() / k6.abs_transform(x)).max())
     fwd_bound = 2 * factor + 2 * (h + w + 2) * F32_U
     inv_fold = dct.idct2_2d(dense, precision=precision, fold=True)
     inv = float(((inv_fold - dct.idct2_2d(dense, precision=precision)).abs()
-                 / abs_transform(dense, True)).max())
+                 / k6.abs_transform(dense, True)).max())
     inv_bound = 2 * factor + 2 * (h + w + 3) * F32_U
     del inv_fold, dense
     trip = float((dct.idct2_2d(c, precision=precision, fold=True)

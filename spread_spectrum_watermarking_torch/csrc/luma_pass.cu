@@ -86,8 +86,8 @@ __device__ __forceinline__ void load12(const uint8_t* img, size_t px,
 
 // Luma of pixels px .. px+3 of one row with `avail` pixels left in it (zero
 // past the end), as bf16 `hi` and, in high mode, the bf16 residual `lo`.
-// `vec`: rows are 4-pixel aligned, so whole groups are read as three 4-byte
-// words.
+// `vec`: rows are 4-pixel aligned and the images 4-byte aligned, so whole
+// groups are read as three 4-byte words.
 template <Mode kMode>
 __device__ __forceinline__ void luma4(const uint8_t* rgb, const uint8_t* base,
                                       const float* lut, size_t px, int avail,
@@ -115,6 +115,10 @@ __device__ __forceinline__ void luma4(const uint8_t* rgb, const uint8_t* base,
     if (kMode == Mode::kHigh)
       lo[j] = __float2bfloat16_rn(__fsub_rn(y[j], __bfloat162float(hi[j])));
   }
+}
+
+__device__ __forceinline__ bool aligned4(const uint8_t* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
 }
 
 __device__ __forceinline__ void store4(__nv_bfloat16* dst,
@@ -151,7 +155,10 @@ luma_pass_kernel(const uint8_t* __restrict__ rgb,
   const size_t img = size_t(blockIdx.z) * h * w;
   const int kdim = kLandscape ? h : w;
   const bool vec8 = kdim % 8 == 0;  // basis rows 16-byte aligned
-  const bool vec4 = w % 4 == 0;     // image rows 4-pixel aligned
+  // Image rows 4-pixel aligned and the images 4-byte aligned: a u8 view
+  // may start at any byte.
+  const bool vec4 = w % 4 == 0 && aligned4(rgb) &&
+                    (base == nullptr || aligned4(base));
   const __nv_bfloat16* parts[2] = {basis, basis_lo};
 
   auto load = [&](ssw::StageT<kP>& st, int k0) {

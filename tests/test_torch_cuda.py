@@ -62,29 +62,42 @@ def _k1_bound(rgb, base, t, r, high=False):
     return ulp + 2 * k * 2.0 ** -24 * terms
 
 
+def _one_byte_in(x):
+    """A contiguous copy of ``x`` that starts one byte into its storage, as
+    a view of a user's buffer may: its 4-byte words are misaligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 @pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_luma_pass_kernel_matches_plain(cuda, h, w):
+    # Single and pair mode, from aligned images and from images one byte
+    # into their storage (the scalar loads).
     rgb, near = _images(0, h, w, cuda)
-    for base in (None, near):
-        before = k1.LAUNCHES
-        t = k1.luma_pass(rgb, base).float()
-        torch.cuda.synchronize()
-        assert k1.LAUNCHES == before + 1
-        r = k1.luma_pass_reference(rgb, base).float()
-        assert bool(((t - r).abs() <= _k1_bound(rgb, base, t, r)).all())
+    for img, other in ((rgb, near), (_one_byte_in(rgb), _one_byte_in(near))):
+        for base in (None, other):
+            before = k1.LAUNCHES
+            t = k1.luma_pass(img, base).float()
+            torch.cuda.synchronize()
+            assert k1.LAUNCHES == before + 1
+            r = k1.luma_pass_reference(img, base).float()
+            assert bool(((t - r).abs() <= _k1_bound(img, base, t, r)).all())
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_luma_pass_high_kernel_matches_plain(cuda, h, w):
     rgb, _ = _images(4, h, w, cuda)
-    before = (k1.LAUNCHES, k1.HIGH_LAUNCHES)
-    t = k1.luma_pass(rgb, precision=tw.Precision.HIGH)
-    torch.cuda.synchronize()
-    assert (k1.LAUNCHES, k1.HIGH_LAUNCHES) == (before[0], before[1] + 1)
-    assert t.dtype == torch.bfloat16 and t.shape == rgb.shape[:3]
-    t = t.float()
-    r = k1.luma_pass_reference(rgb, precision=tw.Precision.HIGH).float()
-    assert bool(((t - r).abs() <= _k1_bound(rgb, None, t, r, True)).all())
+    for img in (rgb, _one_byte_in(rgb)):
+        before = (k1.LAUNCHES, k1.HIGH_LAUNCHES)
+        t = k1.luma_pass(img, precision=tw.Precision.HIGH)
+        torch.cuda.synchronize()
+        assert (k1.LAUNCHES, k1.HIGH_LAUNCHES) == (before[0], before[1] + 1)
+        assert t.dtype == torch.bfloat16 and t.shape == img.shape[:3]
+        t = t.float()
+        r = k1.luma_pass_reference(img, precision=tw.Precision.HIGH).float()
+        assert bool(((t - r).abs() <= _k1_bound(img, None, t, r, True)).all())
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
@@ -116,34 +129,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k4.embed_epilogue(rgb, a.cpu(), b)  # factor on another device
 
 
-def _k6_bound(x, inverse, ortho=False):
-    """2 (H + W) u |L| |X| |R|^T (one more rounding for K6b's scale): two
-    f32 sums of H and W terms taken in another order than cuBLAS's."""
-    h, w = x.shape[-2], x.shape[-1]
-    left = dct.basis_tensor(h, x.device, torch.float32, inverse, ortho).abs()
-    right = dct.basis_tensor(w, x.device, torch.float32, inverse, ortho).abs()
-    scale = k6.inverse_scale(h, w) if inverse else 1.0
-    terms = dct.matmul_f32(dct.matmul_f32(left, x.abs()), right.t())
-    return 2 * (h + w + int(inverse)) * 2.0 ** -24 * scale * terms
-
-
 @pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_dct2d_kernels_match_plain(cuda, h, w):
+    # Within k6_bound (the f32 sums in another order and the TF32 split),
+    # from an aligned start and from a view one float in (4-byte copies).
     gen = torch.Generator(device=cuda).manual_seed(h * w)
-    x = torch.randn((2, h, w), generator=gen, device=cuda)
+    buf = torch.randn((2 * h * w + 1,), generator=gen, device=cuda)
     cases = [(k6.dct2_2d_fused, lambda v: k6.dct2_2d_fused_reference(v),
               False, False),
              (lambda v: k6.dct2_2d_fused(v, ortho=True),
               lambda v: k6.dct2_2d_fused_reference(v, True), False, True),
              (k6.idct2_2d_fused, k6.idct2_2d_fused_reference, True, False)]
-    for kernel, plain, inverse, ortho in cases:
-        before = (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES)
-        t = kernel(x)
-        torch.cuda.synchronize()
-        after = (before[0] + (not inverse), before[1] + inverse)
-        assert (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES) == after
-        r = plain(x)
-        assert bool(((t - r).abs() <= _k6_bound(x, inverse, ortho)).all())
+    for x in (buf[:-1].view(2, h, w), buf[1:].view(2, h, w)):
+        for kernel, plain, inverse, ortho in cases:
+            before = (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES)
+            t = kernel(x)
+            torch.cuda.synchronize()
+            after = (before[0] + (not inverse), before[1] + inverse)
+            assert (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES) == after
+            r = plain(x)
+            assert bool(((t - r).abs() <= k6.k6_bound(x, inverse, ortho)).all())
 
 
 def test_highest_path_on_the_card_matches_the_cpu(cuda):
