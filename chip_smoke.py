@@ -12,7 +12,9 @@ Phases, one line of output each, any failure exits non-zero:
 1. device: the card, its power limit, versions, the kernel build;
 2. K1 (luma + DCT pass) against its plain version: its DEFAULT single and
    pair modes and its HIGH mode (bf16x3), at four geometries and the main
-   path's 1080p batch 48, with every mode's time and its plain version's;
+   path's 1080p batch 48, each mode's error (and its plain version's)
+   against an f64 product at 4 x 1080p in both orientations, with every
+   mode's time and its plain version's;
 3. K4 (embed epilogue) against its plain version at 1080p, n = 1000,
    batches 4 and 48, and both times at batch 48;
 4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
@@ -24,7 +26,7 @@ Phases, one line of output each, any failure exits non-zero:
    2x2160x3840;
 4b. K1f (the folded DCT pass) against its plain version at 4x1080x1920,
    4x1920x1080, 2x64x128 and 2x2160x3840, at DEFAULT and HIGH, both
-   orientations; then at 48x1080x1920 and each tier ``dct2_2d(fold=True)``
+   orientations, and both against an f64 product at 4 x 1080p; then at 48x1080x1920 and each tier ``dct2_2d(fold=True)``
    with K1f's launch counts from that one call (two at DEFAULT and HIGH,
    none at HIGHEST), held to ``fold=False`` and its inverse to the dense
    inverse, the round trip, the whole transforms' times folded and dense;
@@ -217,38 +219,58 @@ def _compare_k1(rgb, base, precision) -> float:
     return float(d.max())
 
 
-def phase_k1() -> tuple[dict, dict]:
-    """K1's DEFAULT modes and its HIGH mode against their plain versions:
-    the records of ``luma_pass`` and ``luma_pass_high``."""
+def _k1_f64_errors(rgb, base, precision) -> dict:
+    """K1's and its plain version's largest error beyond the one bf16
+    rounding, against the f64 product of the operands the pass multiplies,
+    in units of 2^-24 sum |C y| (``luma_pass.f64_error``)."""
+    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+
+    return {name: k1.f64_error(fn(rgb, base, precision), rgb, base, precision)
+            for name, fn in (("kernel", k1.luma_pass),
+                             ("plain", k1.luma_pass_reference))}
+
+
+def phase_k1() -> tuple[dict, dict, dict]:
+    """K1's DEFAULT modes and its HIGH mode against their plain versions,
+    their f64 errors at 4 x 1080p in both orientations, and their times:
+    the records of ``luma_pass`` (single mode), ``luma_pass_pair`` and
+    ``luma_pass_high``."""
     import torch
 
     from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
     default, high = Precision.DEFAULT, Precision.HIGH
+    modes = (("single", False, default), ("pair", True, default),
+             ("high", False, high))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {"default": 0.0, "high": 0.0}
+    worst = {name: 0.0 for name, _, _ in modes}
     for b, h, w in [(4, 1080, 1920), (4, 1920, 1080), (2, 444, 640),
                     (2, 37, 59)]:
         rgb = textures(10 + h, b, h, w)
         base = torch.randint(0, 256, rgb.shape, generator=gen, device="cuda",
                              dtype=torch.uint8)
-        for mode in (None, base):
-            worst["default"] = max(worst["default"],
-                                   _compare_k1(rgb, mode, default))
-        worst["high"] = max(worst["high"], _compare_k1(rgb, None, high))
+        for name, pair, p in modes:
+            mode_base = base if pair else None
+            worst[name] = max(worst[name], _compare_k1(rgb, mode_base, p))
+            if b == 4:
+                log("k1_f64", shape=[b, h, w], mode=name,
+                    **{f"{k}_max_err_in_u_sum_abs": v for k, v in
+                       _k1_f64_errors(rgb, mode_base, p).items()})
+        del rgb, base
+        torch.cuda.empty_cache()
     # The main path's shape, on random pixels; then the times.
     rgb = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                         device="cuda", dtype=torch.uint8)
     base = torch.randint(0, 256, rgb.shape, generator=gen, device="cuda",
                          dtype=torch.uint8)
     times = {}
-    for name, mode, p in (("single", None, default), ("pair", base, default),
-                          ("high", None, high)):
-        key = "high" if p is high else "default"
-        worst[key] = max(worst[key], _compare_k1(rgb, mode, p))
-        times[name] = (time_ms(lambda: k1.luma_pass(rgb, mode, p), 5),
-                       time_ms(lambda: k1.luma_pass_reference(rgb, mode, p), 5))
+    for name, pair, p in modes:
+        mode_base = base if pair else None
+        worst[name] = max(worst[name], _compare_k1(rgb, mode_base, p))
+        times[name] = (
+            time_ms(lambda: k1.luma_pass(rgb, mode_base, p), 5),
+            time_ms(lambda: k1.luma_pass_reference(rgb, mode_base, p), 5))
     b, h, w = rgb.shape[:3]
     px, k = b * h * w, min(h, w)
     # Each output sums K products; u8 in (two images in pair mode), bf16
@@ -261,12 +283,9 @@ def phase_k1() -> tuple[dict, dict]:
            for i, kind in enumerate(("ms", "plain_ms"))},
         **{f"{name}_{key}": v for name, bd in bounds.items()
            for key, v in bd.items()})
-    return ({"max_abs_err": worst["default"], "ms": times["single"][0],
-             "plain_ms": times["single"][1], "library_ms": None,
-             **bounds["single"]},
-            {"max_abs_err": worst["high"], "ms": times["high"][0],
-             "plain_ms": times["high"][1], "library_ms": None,
-             **bounds["high"]})
+    return tuple({"max_abs_err": worst[name], "ms": times[name][0],
+                  "plain_ms": times[name][1], "library_ms": None,
+                  **bounds[name]} for name, _, _ in modes)
 
 
 def _epilogue_inputs(b: int, h: int, w: int):
@@ -553,8 +572,9 @@ def _fold_transform_checks(x, precision) -> dict:
 
 
 def phase_fold() -> tuple[dict, dict]:
-    """K1f against its plain version, then the folded transforms at 48 x
-    1080p and each tier, their times against the dense ones, and K1f's
+    """K1f against its plain version (and both against f64 at 4 x 1080p,
+    both orientations), then the folded transforms at 48 x 1080p and each
+    tier, their times against the dense ones, and K1f's
     times per orientation and tier: the records of ``fold_pass`` and
     ``fold_pass_high``."""
     import torch
@@ -571,6 +591,13 @@ def phase_fold() -> tuple[dict, dict]:
         for p in fast:
             for axis in (-2, -1):
                 _compare_k1f(x, axis, p)
+                if b == 4:  # against f64 (k1f.f64_error), kernel and plain
+                    log("k1f_f64", shape=[b, h, w], tier=p.value, axis=axis,
+                        **{f"{name}_max_err_in_u_sum_abs": k1f.f64_error(
+                            fn(x, axis, precision=p), x, axis, p)
+                           for name, fn in (
+                               ("kernel", k1f.fold_pass),
+                               ("plain", k1f.fold_pass_reference))})
         del x
         torch.cuda.empty_cache()
 
@@ -817,7 +844,8 @@ def _kernel_counts() -> dict:
     from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
-    return {"k1": k1.LAUNCHES, "k1_high": k1.HIGH_LAUNCHES,
+    return {"k1": k1.LAUNCHES, "k1_pair": k1.PAIR_LAUNCHES,
+            "k1_high": k1.HIGH_LAUNCHES,
             "k4": k4.LAUNCHES, "k6a": k6.FORWARD_LAUNCHES,
             "k6b": k6.INVERSE_LAUNCHES, "k1f": k1f.LAUNCHES,
             "k1f_high": k1f.HIGH_LAUNCHES, "k7": k7.LAUNCHES}
@@ -830,7 +858,7 @@ def _zero_kernel_counts() -> None:
     from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 
-    k1.LAUNCHES = k1.HIGH_LAUNCHES = k4.LAUNCHES = 0
+    k1.LAUNCHES = k1.PAIR_LAUNCHES = k1.HIGH_LAUNCHES = k4.LAUNCHES = 0
     k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
     k1f.LAUNCHES = k1f.HIGH_LAUNCHES = k7.LAUNCHES = 0
 
@@ -861,9 +889,11 @@ def phase_fast_path(precision, recs: dict) -> None:
         recs["luma_pass_high"]["launches"] = counts["k1_high"]
         ran = counts["k1_high"] > 0 and counts["k1"] > 0 and counts["k4"] > 0
     else:
-        recs["luma_pass"]["launches"] = counts["k1"]
+        recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
+        recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
         recs["embed_epilogue"]["launches"] = counts["k4"]
-        ran = counts["k1"] > 0 and counts["k4"] > 0 and counts["k1_high"] == 0
+        ran = (counts["k1"] > counts["k1_pair"] > 0 and counts["k4"] > 0
+               and counts["k1_high"] == 0)
     if not ran or any(counts[k] for k in ("k6a", "k6b", "k1f", "k1f_high",
                                           "k7")):
         raise AssertionError(f"{precision.value} path launched {counts}")
@@ -1134,10 +1164,13 @@ def main() -> int:
                         "embed_epilogue.cu",
               "replaces": "spread_spectrum_watermarking_tpu/ops/fused_dct.py:446"
                           " (git 6b7c109^)"}
+    k1p_rec = dict(k1_rec, name="luma_pass_pair",
+                   replaces=k1_rec["replaces"] + ", the read tail's pass")
     k1h_rec = dict(k1_rec, name="luma_pass_high",
                    replaces=k1_rec["replaces"] + ", n_dots=3")
-    k1_default, k1_high = phase_k1()
-    k1_rec.update(k1_default)
+    k1_single, k1_pair, k1_high = phase_k1()
+    k1_rec.update(k1_single)
+    k1p_rec.update(k1_pair)
     k1h_rec.update(k1_high)
     torch.cuda.empty_cache()
     k4_rec.update(phase_k4())
@@ -1168,7 +1201,7 @@ def main() -> int:
                           " (an XLA fusion; no pallas_call)"}
     k7_rec.update(phase_k7())
     torch.cuda.empty_cache()
-    recs = {r["name"]: r for r in (k1_rec, k1h_rec, k4_rec)}
+    recs = {r["name"]: r for r in (k1_rec, k1p_rec, k1h_rec, k4_rec)}
     phase_fast_path(wm.Precision.DEFAULT, recs)
     torch.cuda.empty_cache()
     phase_fast_path(wm.Precision.HIGH, recs)
@@ -1182,8 +1215,8 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
-                                  (k1_rec, k1h_rec, k4_rec, k6a_rec, k6b_rec,
-                                   k1f_rec, k1fh_rec, k7_rec)]}))
+                                  (k1_rec, k1p_rec, k1h_rec, k4_rec, k6a_rec,
+                                   k6b_rec, k1f_rec, k1fh_rec, k7_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

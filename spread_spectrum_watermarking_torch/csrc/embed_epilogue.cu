@@ -46,8 +46,8 @@ embed_epilogue_kernel(const uint8_t* __restrict__ rgb,
   const bool vec_w = w % 8 == 0;
 
   auto load = [&](ssw::Stage& st, int k0) {
-    __nv_bfloat16* a = st.a[0];
-    __nv_bfloat16* b = st.b[0];
+    __nv_bfloat16* a = st.a;
+    __nv_bfloat16* b = st.b;
     __align__(16) __nv_bfloat16 v[8];
     // A[r][c] = a[k0 + c][m0 + r]: 8-wide runs along h, transposed.
     for (int e = threadIdx.x; e < BK * BM / 8; e += THREADS) {

@@ -16,248 +16,181 @@
 // __fsub_rn) as the JAX code forms them, and only then rounded to the tier:
 // one bf16 rounding (RNE) at DEFAULT; at HIGH the exact split
 // v_hi = bf16(v), v_lo = bf16(v - v_hi), with the halves split the same way
-// on the host, and C_hi v_hi + C_hi v_lo + C_lo v_hi summed in one f32
-// accumulator (lo*lo dropped, as the TPU drops it). The output is f32 in
-// true row and column order: the second pass folds the f32 intermediate.
+// on the host, and C_hi v_hi + C_hi v_lo + C_lo v_hi summed in f32 (lo*lo
+// dropped, as the TPU drops it). The output is f32 in true row and column
+// order: the second pass folds the f32 intermediate.
 //
-// Rows (contract H): out[2q+p, w] = sum_m c_p[q, m] v_p[m, w]  (A = ce|co; B = s, d)
-// Cols (contract W): out[h, 2l+p] = sum_m v_p[h, m] c_p[l, m]  (A = s, d; B = (ce|co)^T)
-// One block computes both parities of the same q (or l) range
-// (ssw::kSplitB, ssw::kSplitA): its 128-row (128-column) tile holds 64 even
-// and 64 odd outputs, so the interleaved stores of the cols orientation
-// write 128 contiguous floats a row. The mirrored operand of the cols
-// orientation is read as 16-byte vectors and reversed in registers.
+// Rows (contract H): out[2q+p, w] = sum_m c_p[q, m] v_p[m, w]
+// Cols (contract W): out[h, 2l+p] = sum_m c_p[l, m] v_p[h, m]
+// In both, A = the basis half c_p and B = v_p, K-major (v_p transposed in
+// the rows orientation).
 //
 // Bound on the H100: at 48x1080x1920 the rows pass does 2*48*2*540*540*1920
 // = 1.07e11 operations at DEFAULT (3.2e11 at HIGH), the cols pass 1.91e11
-// (5.7e11), against 796 MB of f32 read and written: memory bounds both
-// passes at DEFAULT (0.24 ms), the tensor cores both at HIGH (0.33 ms and
-// 0.58 ms). This version stages wmma tiles through shared memory as K1
-// does; with a second operand tile per stage it takes 120 to 180 KB of
-// shared memory, one block per SM. wgmma, TMA and more blocks per SM are
-// later work.
-#include "tile_gemm.cuh"
+// (5.7e11), against 398 MB of f32 read and 398 MB written a pass: memory
+// bounds both passes at DEFAULT (0.24 ms each), the tensor cores both at
+// HIGH (0.33 ms and 0.58 ms).
+//
+// Design: two launches a pass on the shared Hopper mainloop
+// (csrc/wgmma_tile.cuh). The first reads the plane once (each element and
+// its mirror, in f32, by scalar loads: any float-aligned view), forms s
+// and d, and writes them as bf16 (two parts at HIGH) in the mainloop's
+// tile image, the even products' operand and the odd products'. The
+// second runs both parities of each image as the mainloop's two parities;
+// its tile walk puts them side by side, since in the cols orientation
+// they share the output's 32-byte sectors. Bytes a pass at DEFAULT: 4 B an
+// element read and 2 B written by the first launch, 2 B read and 4 B
+// written by the second: 12 B an element against the function's 8 (0.36
+// ms against 0.24 at 48x1080x1920), the price of this design against a
+// prologue that folds inside the mainloop; at HIGH, 16 against 8, where
+// the products bound it.
+#include "wgmma_tile.cuh"
 
 namespace {
 
-using ssw::BK;
-using ssw::BM;
-using ssw::BN;
-using ssw::LDA;
-using ssw::LDB;
-using ssw::THREADS;
+using ssw::wg::cdiv;
+using ssw::wg::kDepth;
+using ssw::wg::kRows;
+using ssw::wg::kTile;
 
-constexpr int kHalfM = BM / 2;  // outputs of one parity in a tile (rows)
-constexpr int kHalfN = BN / 2;  // (cols)
+constexpr int kTileThreads = 256;
+// Floats of one f32 region of fold_tiles_kernel, the larger orientation's.
+constexpr int kFoldSmemFloats = kRows * (kDepth + 1);
+constexpr size_t kFoldSmem = 2 * kFoldSmemFloats * sizeof(float);
 
-__device__ __forceinline__ void zero8(__nv_bfloat16* v) {
+// s and d of one plane as the mainloop's operand tile images: rows r, k the
+// folded index m < half (kAlongH, the rows orientation: r = w, transposed;
+// the cols orientation: r = h), tile (blockIdx.y, blockIdx.x) of image
+// blockIdx.z. Layout per image: [parity][part][tile]; parts part_stride
+// apart. The plane is read with neighbouring threads on neighbouring w
+// (the mirrored half of the cols orientation as the same whole segments,
+// in reverse thread order), s and d kept in f32 in shared memory, then
+// read across, 8 threads to each 128-byte row of the tile image.
+template <int kP, bool kAlongH>
+__global__ void __launch_bounds__(kTileThreads)
+fold_tiles_kernel(const float* __restrict__ x,
+                  __nv_bfloat16* __restrict__ tiles, int h, int w, int ktiles,
+                  long long part_stride) {
+  // The region: kDepth rows m by kRows columns w (rows orientation), or
+  // kRows rows h by kDepth columns m (cols); s and d at [row * pitch + col].
+  constexpr int kCols = kAlongH ? kRows : kDepth;
+  constexpr int kPitch = kCols + 1;
+  extern __shared__ float sd[];  // s, then d: 2 * kFoldSmemFloats
+  const int half = (kAlongH ? h : w) / 2;
+  const float* plane = x + size_t(blockIdx.z) * h * w;
+  const int m0 = blockIdx.x * kDepth, r0 = blockIdx.y * kRows;
+  // Batches of kBatch elements a thread, all loaded before any is used, so
+  // the loads are in flight together; zeros past the plane.
+  constexpr int kBatch = 8;
+  for (int i0 = 0; i0 < kTile / kTileThreads; i0 += kBatch) {
+    float a[kBatch], b[kBatch];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = ssw::bf16_zero();
-}
-
-// row[col .. col+3], zero from column `len` on. One 16-byte load when `vec`
-// (rows 16-byte aligned) and the four lie before `len`.
-__device__ __forceinline__ void load4(const float* row, int col, int len,
-                                      bool vec, float* out) {
-  if (vec && col + 4 <= len) {
-    const float4 v = *reinterpret_cast<const float4*>(row + col);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  } else {
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + (i0 + u) * kTileThreads;
+      const int row = e / kCols, col = e % kCols;
+      const int m = m0 + (kAlongH ? row : col);
+      const int gr = r0 + (kAlongH ? col : row);
+      const bool in = m < half && gr < (kAlongH ? w : h);
+      const size_t ia = kAlongH ? size_t(m) * w + gr : size_t(gr) * w + m;
+      const size_t ib = kAlongH ? size_t(h - 1 - m) * w + gr
+                                : size_t(gr) * w + (w - 1 - m);
+      a[u] = in ? plane[ia] : 0.0f;
+      b[u] = in ? plane[ib] : 0.0f;
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = col + j < len ? row[col + j] : 0.0f;
-  }
-}
-
-// The mirror of load4 in a row of n: row[n-1-col-j] for j = 0..3, zero
-// where col + j >= len; one 16-byte load, reversed in registers.
-__device__ __forceinline__ void load4_mirrored(const float* row, int n,
-                                               int col, int len, bool vec,
-                                               float* out) {
-  if (vec && col + 4 <= len) {
-    const float4 v = *reinterpret_cast<const float4*>(row + n - 4 - col);
-    out[0] = v.w;
-    out[1] = v.z;
-    out[2] = v.y;
-    out[3] = v.x;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[j] = col + j < len ? row[n - 1 - col - j] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst,
-                                       const __nv_bfloat16* v) {
-  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(v);
-}
-
-// s = a + b and d = a - b of four elements, each in f32 and then rounded to
-// the tier's bf16 parts, stored at dst[part] + at (the s tile) and
-// dst[part] + at + d_off (the d tile).
-template <int kP, class Parts>
-__device__ __forceinline__ void store_fold(const float* a, const float* b,
-                                           Parts& dst, int at, int d_off) {
-  __align__(8) __nv_bfloat16 sv[2][4];
-  __align__(8) __nv_bfloat16 dv[2][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float s = __fadd_rn(a[j], b[j]);
-    const float d = __fsub_rn(a[j], b[j]);
-    sv[0][j] = __float2bfloat16_rn(s);
-    dv[0][j] = __float2bfloat16_rn(d);
-    if (kP == 2) {
-      sv[1][j] = __float2bfloat16_rn(__fsub_rn(s, __bfloat162float(sv[0][j])));
-      dv[1][j] = __float2bfloat16_rn(__fsub_rn(d, __bfloat162float(dv[0][j])));
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + (i0 + u) * kTileThreads;
+      const int at = (e / kCols) * kPitch + e % kCols;
+      sd[at] = __fadd_rn(a[u], b[u]);
+      sd[kFoldSmemFloats + at] = __fsub_rn(a[u], b[u]);
     }
   }
+  __syncthreads();
+  __nv_bfloat16* tile = tiles + blockIdx.z * (2 * kP * part_stride) +
+                        (size_t(blockIdx.y) * ktiles + blockIdx.x) * kTile;
 #pragma unroll
-  for (int part = 0; part < kP; ++part) {
-    store4(dst[part] + at, sv[part]);
-    store4(dst[part] + at + d_off, dv[part]);
+  for (int i = 0; i < kTile / 8 / kTileThreads; ++i) {
+    const int e = threadIdx.x + i * kTileThreads;
+    const int r = e / (kDepth / 8), c = e % (kDepth / 8);
+    __align__(16) __nv_bfloat16 v[2][kP][8];  // [s, d][part]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = 8 * c + j;
+      const int at = kAlongH ? k * kPitch + r : r * kPitch + k;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float f = sd[p * kFoldSmemFloats + at];
+        v[p][0][j] = __float2bfloat16_rn(f);
+        if (kP == 2)
+          v[p][kP - 1][j] =
+              __float2bfloat16_rn(__fsub_rn(f, __bfloat162float(v[p][0][j])));
+      }
+    }
+    const int at = ssw::wg::swizzled(r, 8 * c);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int q = 0; q < kP; ++q)
+        *reinterpret_cast<uint4*>(tile + (p * kP + q) * part_stride + at) =
+            *reinterpret_cast<const uint4*>(v[p][q]);
   }
 }
 
-// x, out: (batch, h, w) f32. basis_hi (and basis_lo at HIGH, kP = 2): the
-// halves (ce, co) of the DCT-II basis of the contracted length n, as
-// (2, n/2, kpitch) bf16, rows zero-padded to kpitch, a multiple of BK.
-template <int kP, bool kRows>
-__global__ void __launch_bounds__(THREADS)
-fold_pass_kernel(const float* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ basis_hi,
-                 const __nv_bfloat16* __restrict__ basis_lo,
-                 float* __restrict__ out, int h, int w, int kpitch) {
-  constexpr int kSplit = kRows ? ssw::kSplitB : ssw::kSplitA;
-  using Smem = ssw::TileSmemT<kP, kSplit>;
-  using Stage = ssw::StageT<kP, kSplit>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem& s = *reinterpret_cast<Smem*>(smem);
-  const size_t img = size_t(blockIdx.z) * h * w;
-  const float* plane = x + img;
-  const int half = (kRows ? h : w) / 2;
-  // Plane rows 16-byte aligned: a row pitch of whole float4s from an
-  // aligned start (a view may start at any float).
-  const bool vec4 =
-      w % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const __nv_bfloat16* parts[2] = {basis_hi, basis_lo};
-  __align__(16) __nv_bfloat16 v[8];
+// x, out: (batch, h, w) f32; basis: the tile image of the halves (ce, co)
+// of the DCT-II basis of the contracted length n, [parity][part][tile];
+// work: room for the fold's tile image, `work_elems` bf16.
+template <int kP>
+int launch(const float* x, const __nv_bfloat16* basis, __nv_bfloat16* work,
+           long long work_elems, float* out, int batch, int h, int w,
+           bool rows, cudaStream_t stream) {
+  const int half = (rows ? h : w) / 2;
+  const int other = rows ? w : h;  // the fold tiles' rows
+  const int ktiles = cdiv(half, kDepth);
+  const long long part = (long long)cdiv(other, kRows) * ktiles * kTile;
+  if (work_elems < batch * 2LL * kP * part) return int(cudaErrorInvalidValue);
+  const dim3 grid(ktiles, cdiv(other, kRows), batch);
+  auto tiles_kernel = rows ? fold_tiles_kernel<kP, true>
+                           : fold_tiles_kernel<kP, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(kFoldSmem));
+  if (err != cudaSuccess) return int(err);
+  tiles_kernel<<<grid, kTileThreads, kFoldSmem, stream>>>(x, work, h, w,
+                                                          ktiles, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
 
-  if constexpr (kRows) {
-    const int n0 = blockIdx.x * BN;
-    const int q0 = blockIdx.y * kHalfM;
-    auto load = [&](Stage& st, int k0) {
-      // A rows r < 64: ce[q0 + r]; r >= 64: co[q0 + r - 64]; 8-wide along m.
-      for (int e = threadIdx.x; e < BM * BK / 8; e += THREADS) {
-        const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-        const int q = q0 + r % kHalfM;
-        const size_t row = size_t((r / kHalfM) * half + q) * kpitch;
-#pragma unroll
-        for (int part = 0; part < kP; ++part) {
-          if (q < half) ssw::load8(parts[part] + row, k0 + c, kpitch, true, v);
-          else zero8(v);
-          ssw::store8(st.a[part] + r * LDA + c, v);
-        }
-      }
-      // B: s and d of rows m = k0.. and their mirrors, columns n0..; 4-wide.
-      for (int e = threadIdx.x; e < BK * BN / 4; e += THREADS) {
-        const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
-        const int m = k0 + r, gw = n0 + c;
-        float top[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float bot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (m < half) {
-          load4(plane + size_t(m) * w, gw, w, vec4, top);
-          load4(plane + size_t(h - 1 - m) * w, gw, w, vec4, bot);
-        }
-        store_fold<kP>(top, bot, st.b, r * LDB + c, BK * LDB);
-      }
-    };
-    ssw::tile_product(s, half, load);
-    for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      const int q = q0 + r % kHalfM, gw = n0 + c;
-      if (q < half && gw < w)
-        out[img + size_t(2 * q + r / kHalfM) * w + gw] = s.c[r * ssw::LDC + c];
-    }
-  } else {
-    const int l0 = blockIdx.x * kHalfN;
-    const int m0 = blockIdx.y * BM;
-    auto load = [&](Stage& st, int k0) {
-      // A: s and d of rows m0.., columns k0.. and their mirrors; 4-wide.
-      for (int e = threadIdx.x; e < BM * BK / 4; e += THREADS) {
-        const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
-        const int gh = m0 + r, k = k0 + c;
-        float front[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float back[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (gh < h) {
-          const float* row = plane + size_t(gh) * w;
-          load4(row, k, half, vec4, front);
-          load4_mirrored(row, w, k, half, vec4, back);
-        }
-        store_fold<kP>(front, back, st.a, r * LDA + c, BM * LDA);
-      }
-      // B[kk][c] = ce[l0 + c][k0 + kk] (c < 64), co[l0 + c - 64][k0 + kk]
-      // (c >= 64): 8-wide runs along k, transposed.
-      for (int e = threadIdx.x; e < BN * BK / 8; e += THREADS) {
-        const int c = e / (BK / 8), kk = (e % (BK / 8)) * 8;
-        const int l = l0 + c % kHalfN;
-        const size_t row = size_t((c / kHalfN) * half + l) * kpitch;
-#pragma unroll
-        for (int part = 0; part < kP; ++part) {
-          if (l < half) ssw::load8(parts[part] + row, k0 + kk, kpitch, true, v);
-          else zero8(v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) st.b[part][(kk + j) * LDB + c] = v[j];
-        }
-      }
-    };
-    ssw::tile_product(s, half, load);
-    // Output column 2 * l0 + j is tile column (j % 2) * 64 + j / 2.
-    for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-      const int r = e / BN, j = e % BN;
-      const int gh = m0 + r, col = 2 * l0 + j;
-      if (gh < h && col < w)
-        out[img + size_t(gh) * w + col] =
-            s.c[r * ssw::LDC + (j % 2) * kHalfN + j / 2];
-    }
-  }
-}
-
-template <int kP, bool kRows>
-cudaError_t launch(const float* x, const __nv_bfloat16* basis_hi,
-                   const __nv_bfloat16* basis_lo, float* out, int batch,
-                   int h, int w, int kpitch, cudaStream_t stream) {
-  constexpr int kSplit = kRows ? ssw::kSplitB : ssw::kSplitA;
-  const size_t smem = sizeof(ssw::TileSmemT<kP, kSplit>);
-  auto kernel = fold_pass_kernel<kP, kRows>;
-  const cudaError_t err = ssw::set_smem_limit(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid = kRows ? dim3(ssw::cdiv(w, BN), ssw::cdiv(h / 2, kHalfM), batch)
-                          : dim3(ssw::cdiv(w / 2, kHalfN), ssw::cdiv(h, BM), batch);
-  kernel<<<grid, THREADS, smem, stream>>>(x, basis_hi, basis_lo, out, h, w,
-                                          kpitch);
-  return cudaGetLastError();
+  const long long basis_part = (long long)cdiv(half, kRows) * ktiles * kTile;
+  const ssw::wg::Operand fold{work, 2 * kP * part, kP * part, part};
+  const ssw::wg::Operand halves{basis, 0, kP * basis_part, basis_part};
+  // D[q][r] of parity p, r along the other axis, is out[2q + p][r] in the
+  // rows orientation (stored in pairs where aligned) and out[r][2q + p] in
+  // the cols orientation.
+  const long long plane = (long long)h * w;
+  const bool pairs = w % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  const ssw::wg::Output o =
+      rows ? ssw::wg::Output{out, plane, w, 2LL * w, 1, half, w, pairs}
+           : ssw::wg::Output{out, plane, 1, 2, w, half, h, false};
+  err = ssw::wg::launch_gemm<kP, float>(halves, fold, o, cdiv(half, kRows),
+                                        cdiv(other, kRows), ktiles, batch, 2,
+                                        stream);
+  return int(err);
 }
 
 }  // namespace
 
 // x, out: (batch, h, w) f32, contiguous; the contracted length (h when
-// `rows`, else w) is even. basis_hi, basis_lo: the halves of its DCT-II
-// basis as (2, n/2, kpitch) bf16, kpitch a multiple of 32 and at least n/2,
-// zero past n/2: bf16(.) at DEFAULT with basis_lo null, the hi and lo parts
-// of the split at HIGH. Returns the launch's CUDA error code (0 when it was
-// accepted).
-extern "C" int ssw_fold_pass(const float* x, const __nv_bfloat16* basis_hi,
-                             const __nv_bfloat16* basis_lo, float* out,
-                             int batch, int h, int w, int kpitch, int rows,
-                             cudaStream_t stream) {
-  cudaError_t err;
-  if (basis_lo == nullptr)
-    err = rows ? launch<1, true>(x, basis_hi, nullptr, out, batch, h, w, kpitch, stream)
-               : launch<1, false>(x, basis_hi, nullptr, out, batch, h, w, kpitch, stream);
-  else
-    err = rows ? launch<2, true>(x, basis_hi, basis_lo, out, batch, h, w, kpitch, stream)
-               : launch<2, false>(x, basis_hi, basis_lo, out, batch, h, w, kpitch, stream);
-  return int(err);
+// `rows`, else w) is even. basis: the tile image (kernels/_tiles.py) of the
+// halves ce, co of its DCT-II basis, [parity][part]: bf16(.) at DEFAULT
+// (`high` 0), the hi and lo parts of the split at HIGH. work: `work_elems`
+// bf16 of scratch for the fold's tile image. Two launches on `stream`;
+// returns the first CUDA error code (0 when both were accepted).
+extern "C" int ssw_fold_pass(const float* x, const __nv_bfloat16* basis,
+                             __nv_bfloat16* work, long long work_elems,
+                             float* out, int batch, int h, int w, int rows,
+                             int high, cudaStream_t stream) {
+  return high ? launch<2>(x, basis, work, work_elems, out, batch, h, w,
+                          rows != 0, stream)
+              : launch<1>(x, basis, work, work_elems, out, batch, h, w,
+                          rows != 0, stream);
 }

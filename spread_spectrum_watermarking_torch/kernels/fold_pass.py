@@ -20,16 +20,15 @@ import torch
 
 from ..config import Precision
 from ..ops import dct
-from . import _build
+from . import _build, _tiles
 
 #: Launches of the CUDA kernel at DEFAULT and at HIGH in this process
 #: (plain-version calls excluded).
 LAUNCHES = 0
 HIGH_LAUNCHES = 0
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_BK = 32  # the kernel's k-step (csrc/tile_gemm.cuh BK): the bases' row pitch
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _P]
 
 
 def _check_mode(axis: int, precision: Precision) -> None:
@@ -49,14 +48,11 @@ def fold_pass_reference(x: torch.Tensor, axis: int, ortho: bool = False,
     return fold(x, c, precision)
 
 
-def fold_terms(x: torch.Tensor, axis: int,
-               precision: Precision = Precision.DEFAULT) -> torch.Tensor:
-    """``sum_m |c_p[q, m]| |v_p[m]|`` for each output of :func:`fold_pass`,
-    over the operands its products take (bf16 values at DEFAULT; the hi/lo
-    parts of the three products at HIGH), in true order: the scale of its
-    f32 sums, so the kernel is within ``2 K 2^-24 fold_terms`` of its plain
-    version (K = N/2 terms, 3N/2 at HIGH)."""
-    _check_mode(axis, precision)
+def _fold_products(x: torch.Tensor, axis: int, precision: Precision,
+                   product) -> torch.Tensor:
+    """``product(left, right)`` of each parity's operands as the kernel
+    multiplies them (bf16 values at DEFAULT; at HIGH the hi/lo parts of the
+    three products, concatenated along k), in true order."""
     n = x.shape[axis]
     half = n // 2
     xr = x if axis == -2 else x.transpose(-1, -2)
@@ -68,28 +64,60 @@ def fold_terms(x: torch.Tensor, axis: int,
             left, right = dct._bf16x3_operands(cp, v, -1, -2)
         else:
             left, right = dct._bf16_values(cp), dct._bf16_values(v)
-        outs.append(dct.matmul_f32(left.abs(), right.abs()))
+        outs.append(product(left, right))
     t = torch.stack(outs, dim=-2).reshape(xr.shape)
     return t if axis == -2 else t.transpose(-1, -2)
 
 
+def fold_terms(x: torch.Tensor, axis: int,
+               precision: Precision = Precision.DEFAULT) -> torch.Tensor:
+    """``sum_m |c_p[q, m]| |v_p[m]|`` for each output of :func:`fold_pass`,
+    over the operands its products take (bf16 values at DEFAULT; the hi/lo
+    parts of the three products at HIGH), in true order: the scale of its
+    f32 sums, so the kernel is within ``2 K 2^-24 fold_terms`` of its plain
+    version (K = N/2 terms, 3N/2 at HIGH)."""
+    _check_mode(axis, precision)
+    return _fold_products(x, axis, precision,
+                          lambda a, b: dct.matmul_f32(a.abs(), b.abs()))
+
+
+def f64_error(out: torch.Tensor, x: torch.Tensor, axis: int,
+              precision: Precision = Precision.DEFAULT) -> float:
+    """The largest error of ``out`` (:func:`fold_pass` of ``x``, or its
+    plain version's) against the f64 product of the same operands, in
+    units of ``2^-24 fold_terms``: the error of its f32 sums alone."""
+    _check_mode(axis, precision)
+    exact = _fold_products(x, axis, precision,
+                           lambda a, b: torch.matmul(a.double(), b.double()))
+    unit = 2.0 ** -24 * fold_terms(x, axis, precision).double()
+    return float(((out.double() - exact).abs() / unit.clamp_min(1e-300))
+                 .max())
+
+
 @functools.lru_cache(maxsize=16)
 def _fold_bases(n: int, ortho: bool, device: torch.device,
-                precision: Precision) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The halves ``ce = C[0::2, :n/2]`` and ``co = C[1::2, :n/2]`` of the
-    f32 DCT-II basis of size n, as (2, n/2, pitch) bf16 with the rows
-    zero-padded to a multiple of 32: ``bf16(.)`` at DEFAULT (and None), the
-    ``hi`` and ``lo`` parts of ``dct.split_bf16`` at HIGH, the parts the
-    plain products form."""
+                precision: Precision) -> torch.Tensor:
+    """The tile image (``_tiles.tile_image``) of the halves
+    ``ce = C[0::2, :n/2]`` and ``co = C[1::2, :n/2]`` of the f32 DCT-II
+    basis of size n, as (2, parts, rt, kt, 128, 64) bf16: one part,
+    ``bf16(.)``, at DEFAULT; the ``hi`` and ``lo`` parts of
+    ``dct.split_bf16`` at HIGH: the parts the plain products form."""
     half = n // 2
     c = dct.basis_tensor(n, device, torch.float32, ortho=ortho)
-    hi, lo = dct.split_bf16(torch.stack([c[0::2, :half], c[1::2, :half]]))
-    pitch = -(-half // _BK) * _BK
+    halves = torch.stack([c[0::2, :half], c[1::2, :half]])
+    parts = (dct.split_bf16(halves) if precision is Precision.HIGH
+             else (halves,))
+    return _tiles.tile_image(torch.stack(parts, dim=1))
 
-    def padded(t):
-        return torch.nn.functional.pad(t, (0, pitch - half)).to(
-            torch.bfloat16).contiguous()
-    return padded(hi), padded(lo) if precision is Precision.HIGH else None
+
+def _work_elems(b: int, h: int, w: int, axis: int,
+                precision: Precision) -> int:
+    """bf16 elements of the fold's tile image: s and d, rows along the
+    other axis, k along half the contracted one, two parts at HIGH."""
+    n, other = (h, w) if axis == -2 else (w, h)
+    rt, kt = _tiles.tile_counts(other, n // 2)
+    parts = 2 if precision is Precision.HIGH else 1
+    return b * 2 * parts * rt * kt * _tiles.ROWS * _tiles.DEPTH
 
 
 def fold_pass(x: torch.Tensor, axis: int, ortho: bool = False,
@@ -118,14 +146,16 @@ def fold_pass(x: torch.Tensor, axis: int, ortho: bool = False,
     batch = x.numel() // (h * w)
     if batch > 65535:  # the grid's z dimension
         raise ValueError(f"at most 65535 planes a call, got {batch}")
-    hi, lo = _fold_bases(n, ortho, x.device, precision)
+    basis = _fold_bases(n, ortho, x.device, precision)
+    n_work = _work_elems(batch, h, w, axis, precision)
+    work = torch.empty(n_work, dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     fn = _build.kernel("ssw_fold_pass", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), hi.data_ptr(),
-                  None if lo is None else lo.data_ptr(), out.data_ptr(),
-                  batch, h, w, hi.shape[-1], int(axis == -2), stream)
+        code = fn(x.data_ptr(), basis.data_ptr(), work.data_ptr(), n_work,
+                  out.data_ptr(), batch, h, w, int(axis == -2),
+                  int(precision is Precision.HIGH), stream)
     _build.check(code, "ssw_fold_pass")
     global LAUNCHES, HIGH_LAUNCHES
     if precision is Precision.HIGH:

@@ -24,16 +24,19 @@ import torch
 
 from ..config import Precision
 from ..ops import colorspace, dct
-from . import _build
+from . import _build, _tiles
 
 #: Launches of the CUDA kernel in single or pair mode in this process
 #: (plain-version calls excluded).
 LAUNCHES = 0
+#: Of those, the launches in pair mode.
+PAIR_LAUNCHES = 0
 #: Launches of the CUDA kernel in high mode in this process.
 HIGH_LAUNCHES = 0
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _P]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P, _P, _P, _P, _L, _P, _I, _I, _I, _P]
+_HIGH_ARGTYPES = [_P, _P, _P, _L, _P, _I, _I, _I, _P]
 
 
 def _check_mode(base: torch.Tensor | None, precision: Precision) -> None:
@@ -60,13 +63,54 @@ def luma_pass_reference(rgb: torch.Tensor, base: torch.Tensor | None = None,
                          precision=Precision.DEFAULT, out_dtype=torch.bfloat16)
 
 
+def f64_error(out: torch.Tensor, rgb: torch.Tensor,
+              base: torch.Tensor | None = None,
+              precision: Precision = Precision.DEFAULT) -> float:
+    """The largest error of ``out`` (:func:`luma_pass` of the same
+    arguments, or its plain version's) beyond its one bf16 rounding, in
+    units of ``2^-24 sum_k |C y|``: ``(|out - exact| - half a bf16 ulp)``
+    where positive, ``exact`` the f64 product of the operands the pass
+    multiplies (bf16 luma and basis; at HIGH the hi/lo parts of its three
+    products). 0 where every output is the correctly rounded sum."""
+    _check_mode(base, precision)
+    y = colorspace.luma_u8(rgb) if base is None else colorspace.luma_diff(
+        base, rgb)
+    h, w = rgb.shape[-3], rgb.shape[-2]
+    c = dct.basis_tensor(min(h, w), rgb.device, torch.float32)
+    a, b = (c, y) if h <= w else (y, c.t())
+    if precision is Precision.HIGH:
+        a, b = dct._bf16x3_operands(a, b, -1, -2)
+    else:
+        a, b = dct._bf16_values(a), dct._bf16_values(b)
+    a, b = a.double(), b.double()
+    exact = torch.matmul(a, b)
+    unit = 2.0 ** -24 * torch.matmul(a.abs(), b.abs())
+    got = out.double()
+    big = torch.maximum(got.abs(), exact.abs()).clamp_min(2.0 ** -126)
+    half_ulp = torch.exp2(torch.floor(torch.log2(big)) - 8)
+    excess = ((got - exact).abs() - half_ulp).clamp_min(0)
+    return float((excess / unit.clamp_min(1e-300)).max())
+
+
 @functools.lru_cache(maxsize=16)
-def _basis_hi_lo(n: int, device: torch.device
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bf16x3 split of the f32 DCT-II basis of size n, as bf16 tensors
-    on ``device``: the same parts ``dct.matmul_bf16x3`` forms."""
-    hi, lo = dct.split_bf16(dct.basis_tensor(n, device, torch.float32))
-    return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
+def _basis_tiles(n: int, device: torch.device, precision: Precision
+                 ) -> torch.Tensor:
+    """The tile image (``_tiles.tile_image``) of the DCT-II basis of size
+    n on ``device``: of its bf16 values at DEFAULT; at HIGH of the hi and
+    lo parts of its bf16x3 split (the parts ``dct.matmul_bf16x3`` forms),
+    one after the other."""
+    c = dct.basis_tensor(n, device, torch.float32)
+    if precision is Precision.HIGH:
+        c = torch.stack(dct.split_bf16(c))
+    return _tiles.tile_image(c)
+
+
+def _work_elems(b: int, h: int, w: int, precision: Precision) -> int:
+    """bf16 elements of the luma's tile image: rows along the longer axis,
+    k along the shorter, its two parts at HIGH."""
+    rt, kt = _tiles.tile_counts(max(h, w), min(h, w))
+    parts = 2 if precision is Precision.HIGH else 1
+    return b * parts * rt * kt * _tiles.ROWS * _tiles.DEPTH
 
 
 def _check_image(x: torch.Tensor, name: str) -> None:
@@ -98,24 +142,27 @@ def luma_pass(rgb: torch.Tensor, base: torch.Tensor | None = None,
         raise ValueError(f"luma_pass runs on CPU or CUDA, not {rgb.device}")
     b, h, w = rgb.shape[:3]
     out = torch.empty((b, h, w), dtype=torch.bfloat16, device=rgb.device)
-    global LAUNCHES, HIGH_LAUNCHES
+    n_work = _work_elems(b, h, w, precision)
+    work = torch.empty(n_work, dtype=torch.bfloat16, device=rgb.device)
+    basis = _basis_tiles(min(h, w), rgb.device, precision)
+    global LAUNCHES, PAIR_LAUNCHES, HIGH_LAUNCHES
     with torch.cuda.device(rgb.device):
         stream = torch.cuda.current_stream().cuda_stream
         if precision is Precision.HIGH:
-            hi, lo = _basis_hi_lo(min(h, w), rgb.device)
             name = "ssw_luma_pass_high"
-            code = _build.kernel(name, _ARGTYPES)(
-                rgb.data_ptr(), hi.data_ptr(), lo.data_ptr(), out.data_ptr(),
-                b, h, w, stream)
+            code = _build.kernel(name, _HIGH_ARGTYPES)(
+                rgb.data_ptr(), basis.data_ptr(), work.data_ptr(), n_work,
+                out.data_ptr(), b, h, w, stream)
         else:
-            basis = dct.basis_tensor(min(h, w), rgb.device, torch.bfloat16)
             name = "ssw_luma_pass"
             code = _build.kernel(name, _ARGTYPES)(
                 rgb.data_ptr(), None if base is None else base.data_ptr(),
-                basis.data_ptr(), out.data_ptr(), b, h, w, stream)
+                basis.data_ptr(), work.data_ptr(), n_work, out.data_ptr(),
+                b, h, w, stream)
     _build.check(code, name)
     if precision is Precision.HIGH:
         HIGH_LAUNCHES += 1
     else:
         LAUNCHES += 1
+        PAIR_LAUNCHES += int(base is not None)
     return out

@@ -67,12 +67,6 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md, Queue 1 item 6)")
 
 
-def _to_f32(rgb: torch.Tensor) -> torch.Tensor:
-    if not rgb.is_floating_point():
-        return colorspace.u8_to_f32(rgb)
-    return rgb.to(torch.float32)
-
-
 def _forward(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
     """RGB (..., H, W, 3) -> the luma plane's f32 DCT (..., H, W) at the
     tier: the prologue of the HIGHEST Writer and Reader (kernel K6a on the
@@ -90,7 +84,7 @@ def _half_pass(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
     uint8), so float images are a dtype route with no kernel behind it.
     """
     if rgb.dtype == torch.uint8 and precision is not Precision.HIGHEST:
-        return luma_pass(rgb, precision=precision)
+        return luma_pass(rgb.contiguous(), precision=precision)
     ax = dct.shorter_axis(rgb.shape[-3], rgb.shape[-2])
     y = colorspace.luma(rgb)
     if precision is Precision.DEFAULT:
@@ -190,7 +184,7 @@ def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig,
     delta = new_values - original
     if quantize and rgb.dtype == torch.uint8:
         a, b = _sparse_idct_factors(delta, idx, h, w)
-        return embed_epilogue(rgb, a, b), idx, original
+        return embed_epilogue(rgb.contiguous(), a, b), idx, original
     out = colorspace.add_luma_delta_f32(
         rgb, _sparse_idct_delta(delta, idx, h, w, Precision.DEFAULT))
     return (colorspace.f32_to_u8(out) if quantize else out), idx, original
@@ -213,7 +207,7 @@ def _embed_fast_full_inverse(rgb: torch.Tensor, marks: torch.Tensor,
     value differs from the prologue's estimate, and detection recovers the
     delta against the estimate), and inverts the whole plane."""
     idx, original, new_values = _modulated(rgb, marks, config)
-    yiq = colorspace.rgb_to_yiq(_to_f32(rgb))
+    yiq = colorspace.rgb_to_yiq(colorspace.to_f32(rgb))
     b, h, w = yiq.shape[:3]
     coeffs = dct.dct2_2d(yiq[..., 0], precision=config.precision)
     flat = coeffs.reshape(b, h * w).scatter_add(-1, idx,
@@ -250,7 +244,7 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
     else:
         # The reference's Writer::result: the full inverse of the changed
         # plane, with the base's I and Q.
-        yiq = colorspace.rgb_to_yiq(_to_f32(rgb))
+        yiq = colorspace.rgb_to_yiq(colorspace.to_f32(rgb))
         out = _with_luma(yiq, dct.idct2_2d(
             flat.scatter(-1, idx, new_values).reshape(b, h, w)))
     if quantize:
@@ -279,7 +273,7 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
     h, w = base.shape[-3], base.shape[-2]
     ax = dct.shorter_axis(h, w)
     if base.dtype == torch.uint8 and derived.dtype == torch.uint8:
-        td = luma_pass(derived, base)
+        td = luma_pass(derived.contiguous(), base.contiguous())
     else:
         td = dct.dct2_pass(colorspace.luma_diff(base, derived).to(
             torch.bfloat16), axis=ax, precision=Precision.DEFAULT,

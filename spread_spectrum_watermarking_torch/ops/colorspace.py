@@ -115,13 +115,21 @@ def yiq_to_rgb(yiq: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.stack(rows, dim=-1), 0.0, 1.0)
 
 
+def to_f32(rgb: torch.Tensor) -> torch.Tensor:
+    """Integer RGB through :func:`u8_to_f32` (every integer dtype, as the
+    JAX package's ``pipeline._to_f32`` scales them), float RGB as f32."""
+    if rgb.is_floating_point():
+        return rgb.to(torch.float32)
+    return u8_to_f32(rgb)
+
+
 def luma(rgb: torch.Tensor) -> torch.Tensor:
-    """The f32 luma plane of u8 or float RGB: :func:`rgb_to_luma` of the f32
-    image (u8 through :func:`u8_to_f32`, by the table of :func:`luma_u8`,
-    which gives the same bits)."""
+    """The f32 luma plane of integer or float RGB: :func:`rgb_to_luma` of
+    the f32 image (integers through :func:`u8_to_f32`; u8 by the table of
+    :func:`luma_u8`, which gives the same bits)."""
     if rgb.dtype == torch.uint8:
         return luma_u8(rgb)
-    return rgb_to_luma(rgb.to(torch.float32))
+    return rgb_to_luma(to_f32(rgb))
 
 
 def luma_diff(base: torch.Tensor, derived: torch.Tensor) -> torch.Tensor:
@@ -131,10 +139,16 @@ def luma_diff(base: torch.Tensor, derived: torch.Tensor) -> torch.Tensor:
     integer, so the only rounding is the JAX code's ``/ 25500``, which XLA
     compiles to the product by ``f32(1/25500)`` -- bit-identical to the JAX
     version. Otherwise, as in the JAX package, the difference of the two
-    f32 lumas (u8 images through :func:`u8_to_f32`).
+    f32 lumas (u8 images through :func:`u8_to_f32`, other dtypes cast to
+    f32 unscaled).
     """
     if base.dtype != torch.uint8 or derived.dtype != torch.uint8:
-        return luma(derived) - luma(base)
+        # As the JAX package computes it: other integer dtypes are taken as
+        # floats here, unscaled (similarity does not depend on scale).
+        def one(x):
+            return luma_u8(x) if x.dtype == torch.uint8 else rgb_to_luma(
+                x.to(torch.float32))
+        return one(derived) - one(base)
     d = derived.to(torch.int32) - base.to(torch.int32)
     num = (30 * d[..., 0] + 59 * d[..., 1]) + 11 * d[..., 2]
     return num.to(torch.float32) * _INV25500
@@ -160,13 +174,18 @@ def add_luma_delta_f32(rgb: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     it: for u8 images XLA contracts ``u8 * f32(1/255) + dy`` into one FMA,
     so the sum is rounded once: kernel K7 in its f32 mode on a CUDA tensor
     (``..kernels.add_quantize``), its plain version (:func:`_fma_f32`) on
-    the CPU. Float images add in f32. Y is the only modified plane and the
+    the CPU; other integer dtypes by that plain version on every device.
+    Float images add in f32. Y is the only modified plane and the
     Y column of YIQ->RGB is [1, 1, 1] (reference src/yiq.rs:161-165).
     """
     if rgb.dtype == torch.uint8:
         return add_quantize.add_quantize(
             rgb.contiguous(), dy.to(torch.float32).contiguous(),
             quantize=False)
+    if not rgb.is_floating_point():  # the same single rounding, plain ops
+        return torch.clamp(_fma_f32(rgb.to(torch.float32), _INV255,
+                                    dy.to(torch.float32)[..., None]),
+                           0.0, 1.0)
     return torch.clamp(rgb.to(torch.float32) + dy.to(torch.float32)[..., None],
                        0.0, 1.0)
 

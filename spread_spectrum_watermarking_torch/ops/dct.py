@@ -242,10 +242,10 @@ def dct2_2d(x: torch.Tensor, *, ortho: bool = False,
     folds = _folds(h, w, fold)
     if (folds and precision is not Precision.HIGHEST
             and x.device.type != "cpu"):
-        t = fold_pass.fold_pass(x, -2, ortho, precision)
+        t = fold_pass.fold_pass(x.contiguous(), -2, ortho, precision)
         return fold_pass.fold_pass(t, -1, ortho, precision)
     if precision is Precision.HIGHEST and not folds:
-        return dct2d_fused.dct2_2d_fused(x, ortho=ortho)
+        return dct2d_fused.dct2_2d_fused(x.contiguous(), ortho=ortho)
     ch = basis_tensor(h, x.device, torch.float32, ortho=ortho)
     cw = basis_tensor(w, x.device, torch.float32, ortho=ortho)
     if folds:  # the plain folded passes (K1f's plain version on the CPU)
@@ -264,7 +264,7 @@ def idct2_2d(x: torch.Tensor, *, precision: Precision = Precision.HIGHEST,
     h, w = x.shape[-2], x.shape[-1]
     folds = _folds(h, w, fold)
     if precision is Precision.HIGHEST and not folds:
-        return dct2d_fused.idct2_2d_fused(x)
+        return dct2d_fused.idct2_2d_fused(x.contiguous())
     dh = basis_tensor(h, x.device, torch.float32, inverse=True)
     dw = basis_tensor(w, x.device, torch.float32, inverse=True)
     if folds:

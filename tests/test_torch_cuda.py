@@ -297,3 +297,149 @@ def test_fold_and_add_quantize_wrappers_refuse_what_they_do_not_take(cuda):
         k7.add_quantize(rgb.float(), dy, False)  # image not u8
     with pytest.raises(ValueError):
         k7.add_quantize(rgb, dy.cpu(), True)  # CPU/CUDA mix
+
+
+def _crop(x):
+    """A strided view: ``x`` inside a border of 8, as a user's crop is."""
+    big = torch.zeros((x.shape[0], x.shape[1] + 16, x.shape[2] + 16,
+                       *x.shape[3:]), dtype=x.dtype, device=x.device)
+    big[:, 8:-8, 8:-8] = x
+    return big[:, 8:-8, 8:-8]
+
+
+@pytest.mark.parametrize("precision", [tw.Precision.DEFAULT,
+                                       tw.Precision.HIGH])
+def test_fast_tiers_take_strided_views(cuda, precision):
+    # _half_pass (K1), _embed_fast (K4) and _extract_fast_tail (K1's pair
+    # mode) on cropped u8 views: the same bits as on contiguous copies,
+    # and the CPU run's within one u8 step and 0.1 sigma.
+    rng = np.random.default_rng(11)
+    rgb = torch.from_numpy(rng.integers(0, 256, (2, 96, 128, 3),
+                                        dtype=np.uint8)).to(cuda)
+    marks = torch.from_numpy(rng.standard_normal((2, 1, 200)).astype(
+        np.float32)).to(cuda)
+    cfg = tw.WriteConfig(precision=precision)
+    rcfg = tw.ReadConfig(precision=precision)
+    view = _crop(rgb)
+    assert not view.is_contiguous()
+    marked, ext = tw.embed_verified(view, marks, cfg)
+    d_marked, d_ext = tw.embed_verified(rgb, marks, cfg)
+    assert torch.equal(marked, d_marked) and torch.equal(ext, d_ext)
+    assert torch.equal(tw.embed(view, marks, cfg), d_marked)
+    idx, vals = tw.rank_base(view, 200, rcfg)
+    read = tw.extract_ranked(view, _crop(marked), idx, vals, rcfg)
+    assert torch.equal(read, d_ext)
+    c_marked, c_ext = tw.embed_verified(rgb.cpu(), marks.cpu(), cfg)
+    assert int((marked.cpu().int() - c_marked.int()).abs().max()) <= 1
+    own = [torch.diagonal(tw.similarity(e.cpu(), marks[:, 0].cpu()))
+           for e in (read, c_ext)]
+    assert bool(((own[0] - own[1]).abs() <= 0.1).all())
+
+
+def test_dct_ops_take_strided_planes(cuda):
+    # K6a/K6b (HIGHEST) and K1f (fold=True, DEFAULT and HIGH) on a
+    # transposed plane and a crop: the same bits as on contiguous copies;
+    # the HIGHEST transforms within k6_bound of the CPU's.
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((2, 96, 128), generator=gen, device=cuda)
+    for view in (x.transpose(-1, -2), _crop(x)):
+        assert not view.is_contiguous()
+        dense = view.contiguous()
+        before = (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES, k1f.LAUNCHES,
+                  k1f.HIGH_LAUNCHES)
+        assert torch.equal(dct.dct2_2d(view), dct.dct2_2d(dense))
+        assert torch.equal(dct.idct2_2d(view), dct.idct2_2d(dense))
+        for p in (tw.Precision.DEFAULT, tw.Precision.HIGH):
+            assert torch.equal(dct.dct2_2d(view, precision=p, fold=True),
+                               dct.dct2_2d(dense, precision=p, fold=True))
+        assert (k6.FORWARD_LAUNCHES, k6.INVERSE_LAUNCHES, k1f.LAUNCHES,
+                k1f.HIGH_LAUNCHES) == tuple(
+                    n + d for n, d in zip(before, (2, 2, 4, 4)))
+        cpu = dense.cpu()
+        t = dct.dct2_2d(view).cpu()
+        assert bool(((t - dct.dct2_2d(cpu)).abs()
+                     <= k6.k6_bound(cpu)).all())
+        t = dct.idct2_2d(view).cpu()
+        assert bool(((t - dct.idct2_2d(cpu)).abs()
+                     <= k6.k6_bound(cpu, True)).all())
+
+
+def test_tf32_does_not_leak_into_highest_products(cuda):
+    # coeffs_at, the sparse delta and HIGHEST similarity run their f32
+    # products with TF32 off (ops.dct._f32_sums), whatever the caller set.
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    y = torch.rand((2, 96, 128), generator=gen, device=cuda)
+    idx = torch.randint(0, 96 * 128, (2, 300), generator=gen, device=cuda)
+    delta = torch.randn((2, 300), generator=gen, device=cuda)
+    ext = torch.randn((2, 300), generator=gen, device=cuda)
+    cand = torch.randn((5, 300), generator=gen, device=cuda)
+
+    def products():
+        return (dct.dct2_coeffs_at(y, idx),
+                tp._sparse_idct_delta(delta, idx, 96, 128,
+                                      tw.Precision.HIGHEST),
+                tw.similarity(ext, cand))
+
+    m = torch.backends.cuda.matmul
+    before = (torch.get_float32_matmul_precision(), m.allow_tf32)
+    want = products()
+    try:
+        torch.set_float32_matmul_precision("high")
+        m.allow_tf32 = True
+        got = products()
+        assert m.allow_tf32  # the caller's setting is back after each call
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        m.allow_tf32 = before[1]
+    assert (torch.get_float32_matmul_precision(), m.allow_tf32) == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h,w", [(64, 128), (128, 64), (129, 200),
+                                 (200, 129)])
+def test_luma_pass_kernel_at_tile_edges(cuda, h, w):
+    # Exactly one 128-row tile, one 64-deep stage, and one past each, in
+    # both orientations, every mode, from a view one byte in.
+    rgb, near = _images(6, h, w, cuda)
+    for img, other in ((rgb, near), (_one_byte_in(rgb), _one_byte_in(near))):
+        for base, p in ((None, tw.Precision.DEFAULT),
+                        (other, tw.Precision.DEFAULT),
+                        (None, tw.Precision.HIGH)):
+            t = k1.luma_pass(img, base, p).float()
+            r = k1.luma_pass_reference(img, base, p).float()
+            bound = _k1_bound(img, base, t, r, p is tw.Precision.HIGH)
+            assert bool(((t - r).abs() <= bound).all())
+
+
+# The pre-PR kernels' errors against f64 (wmma, the tensor cores summing
+# the whole k range), in units of 2^-24 sum |a| |b| (past the bf16 rounding
+# for K1), on 4 x 1080 x 1920 random inputs: scripts/k1_ab.py on an
+# NVIDIA H100 80GB HBM3 at 700 W. The kernels on the shared wgmma
+# mainloop sum each 64-deep stage apart and add the sums in f32.
+PRE_WGMMA_F64_ERR = {"single": 13.82, "pair": 3.19, "high": 42.44,
+                     ("default", -2): 7.51, ("default", -1): 13.58,
+                     ("high", -2): 25.81, ("high", -1): 43.85}
+
+
+def test_luma_pass_f64_error_no_worse_than_before(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    rgb = torch.randint(0, 256, (4, 1080, 1920, 3), generator=gen,
+                        device=cuda, dtype=torch.uint8)
+    base = torch.randint(0, 256, rgb.shape, generator=gen, device=cuda,
+                         dtype=torch.uint8)
+    for name, b, p in (("single", None, tw.Precision.DEFAULT),
+                       ("pair", base, tw.Precision.DEFAULT),
+                       ("high", None, tw.Precision.HIGH)):
+        err = k1.f64_error(k1.luma_pass(rgb, b, p), rgb, b, p)
+        assert err <= PRE_WGMMA_F64_ERR[name], (name, err)
+
+
+def test_fold_pass_f64_error_no_worse_than_before(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.rand((4, 1080, 1920), generator=gen, device=cuda)
+    for p in (tw.Precision.DEFAULT, tw.Precision.HIGH):
+        for axis in (-2, -1):
+            err = k1f.f64_error(k1f.fold_pass(x, axis, precision=p), x, axis,
+                                p)
+            assert err <= PRE_WGMMA_F64_ERR[(p.value, axis)], (p, axis, err)

@@ -33,6 +33,7 @@ from spread_spectrum_watermarking_tpu.models import pipeline as jp
 from spread_spectrum_watermarking_tpu.ops import dct as jd
 from spread_spectrum_watermarking_torch.config import Precision
 from spread_spectrum_watermarking_torch.kernels import _build
+from spread_spectrum_watermarking_torch.kernels import _tiles
 from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 from spread_spectrum_watermarking_torch.ops import colorspace as tc
@@ -261,8 +262,11 @@ def test_luma_pass_high_on_the_cpu_and_the_modes_it_refuses():
         k1.luma_pass(rgb, rgb, precision=Precision.HIGH)  # pair mode at HIGH
     with pytest.raises(ValueError):
         k1.luma_pass(rgb, precision=Precision.HIGHEST)
-    # The HIGH basis split is the one matmul_bf16x3 forms.
-    hi, lo = k1._basis_hi_lo(37, torch.device("cpu"))
+    # The HIGH basis split is the one matmul_bf16x3 forms, in the kernel's
+    # tile image: hi part, then lo part.
+    tiles = k1._basis_tiles(37, torch.device("cpu"), Precision.HIGH)
+    assert tiles.shape == (2, 1, 1, 128, 64)
+    hi, lo = _tiles.untile_image(tiles, 37, 37)
     c = torch.from_numpy(td.dct2_basis(37))
     assert hi.dtype == lo.dtype == torch.bfloat16
     torch.testing.assert_close(hi.float() + lo.float(), c, rtol=0,

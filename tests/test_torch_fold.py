@@ -27,6 +27,7 @@ from spread_spectrum_watermarking_tpu.config import Precision as JPrecision
 from spread_spectrum_watermarking_tpu.ops import dct as jd
 from spread_spectrum_watermarking_torch.config import Precision
 from spread_spectrum_watermarking_torch.kernels import _build
+from spread_spectrum_watermarking_torch.kernels import _tiles
 from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
 from spread_spectrum_watermarking_torch.ops import dct as td
@@ -180,16 +181,20 @@ def test_fold_bases_are_the_halves_the_plain_products_round():
     cpu = torch.device("cpu")
     c = torch.from_numpy(td.dct2_basis(1080, True))
     halves = torch.stack([c[0::2, :540], c[1::2, :540]])
-    hi, lo = k1f._fold_bases(1080, True, cpu, Precision.HIGH)
-    assert hi.dtype == lo.dtype == torch.bfloat16
-    assert hi.shape == lo.shape == (2, 540, 544)  # rows padded to 32
-    assert not bool(hi[..., 540:].any()) and not bool(lo[..., 540:].any())
+    tiles = k1f._fold_bases(1080, True, cpu, Precision.HIGH)
+    # (parity, part, row tiles, k tiles, 128, 64): 540 padded to 640 x 576.
+    assert tiles.dtype == torch.bfloat16
+    assert tiles.shape == (2, 2, 5, 9, 128, 64)
+    padded = _tiles.untile_image(tiles, 640, 576)
+    assert not bool(padded[..., 540:, :].any())
+    assert not bool(padded[..., 540:].any())
+    hi, lo = padded[:, 0, :540, :540], padded[:, 1, :540, :540]
     want_hi, want_lo = td.split_bf16(halves)
-    torch.testing.assert_close(hi[..., :540].float(), want_hi, rtol=0, atol=0)
-    torch.testing.assert_close(lo[..., :540].float(), want_lo, rtol=0, atol=0)
-    d_hi, d_lo = k1f._fold_bases(1080, True, cpu, Precision.DEFAULT)
-    assert d_lo is None
-    torch.testing.assert_close(d_hi, hi, rtol=0, atol=0)
+    torch.testing.assert_close(hi.float(), want_hi, rtol=0, atol=0)
+    torch.testing.assert_close(lo.float(), want_lo, rtol=0, atol=0)
+    d_tiles = k1f._fold_bases(1080, True, cpu, Precision.DEFAULT)
+    assert d_tiles.shape == (2, 1, 5, 9, 128, 64)
+    torch.testing.assert_close(d_tiles[:, 0], tiles[:, 0], rtol=0, atol=0)
 
 
 def test_fold_pass_refuses_what_it_does_not_compute():
