@@ -15,8 +15,11 @@ Phases, one line of output each, any failure exits non-zero:
    path's 1080p batch 48, each mode's error (and its plain version's)
    against an f64 product at 4 x 1080p in both orientations, with every
    mode's time and its plain version's;
-3. K4 (embed epilogue) against its plain version at 1080p, n = 1000,
-   batches 4 and 48, and both times at batch 48;
+3. K4 (embed epilogue) on the real path's ``(rgb, delta, idx)`` at 1080p,
+   n = 1000, batches 4 and 48: its factor tile pass bit-equal to its plain
+   version, the whole kernel within one u8 step of its plain version; its
+   time, its plain version's and, as a yardstick for the product alone,
+   one bf16 ``torch.matmul`` of the factors, at batch 48;
 4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
    against their plain versions at 444x640, 640x444, 37x59, 48x1080x1920,
    1920x1080 and 2x2160x3840; K6a's top-1000 ranking against the plain
@@ -289,7 +292,8 @@ def phase_k1() -> tuple[dict, dict, dict]:
 
 
 def _epilogue_inputs(b: int, h: int, w: int):
-    """u8 textures and K4 factors from the real embed path's (delta, idx)."""
+    """u8 textures and the real embed path's (delta, idx) for them: K4's
+    inputs."""
     import torch
 
     from spread_spectrum_watermarking_torch import Method, Ordering, Precision
@@ -302,39 +306,59 @@ def _epilogue_inputs(b: int, h: int, w: int):
     idx, vals = tp._rank_and_values_fast(rgb, N, Ordering.ENERGY,
                                          Precision.DEFAULT)
     new = modulation.embed_marks(vals, marks, Method.OPTION2, 0.1)
-    a, bf = tp._sparse_idct_factors(new - vals, idx, h, w)
-    return rgb, a, bf
+    return rgb, new - vals, idx
 
 
-def _compare_k4(rgb, a, b) -> int:
-    """K4 against its plain version; logs, raises past one u8 step, returns
-    the largest step."""
+def _compare_k4(rgb, delta, idx) -> int:
+    """K4's factor tile pass bit-equal to its plain version, and the whole
+    kernel against its plain version; logs, raises past one u8 step,
+    returns the largest step."""
+    import torch
+
     from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 
-    t = k4.embed_epilogue(rgb, a, b).int()
-    r = k4.embed_epilogue_reference(rgb, a, b).int()
+    h, w = rgb.shape[1:3]
+    tiles_equal = all(
+        torch.equal(t, r) for t, r in zip(
+            k4.factor_tiles(delta, idx, h, w),
+            k4.factor_tiles_reference(delta, idx, h, w)))
+    t = k4.embed_epilogue(rgb, delta, idx).int()
+    r = k4.embed_epilogue_reference(rgb, delta, idx).int()
     d = (t - r).abs()
-    log("k4", shape=list(rgb.shape[:3]), n=N,
+    log("k4", shape=list(rgb.shape[:3]), n=N, factor_tiles_bit_equal=tiles_equal,
         share_differing=float((d > 0).float().mean()), max_abs_err=int(d.max()),
         share_changed=float((r != rgb.int()).float().mean()))
+    if not tiles_equal:
+        raise AssertionError("K4: the factor tiles differ from their plain "
+                             "version")
     if int(d.max()) > 1:
         raise AssertionError("K4: more than one u8 step from its plain version")
     return int(d.max())
 
 
 def phase_k4() -> dict:
+    """K4 on the real path's inputs at 4 x and 48 x 1080p, its time, its
+    plain version's, its bound, and one bf16 matmul of the factors: the
+    record of ``embed_epilogue``."""
     from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
+    from spread_spectrum_watermarking_torch.ops import dct
 
     worst = _compare_k4(*_epilogue_inputs(4, 1080, 1920))
-    rgb, a, b = _epilogue_inputs(48, 1080, 1920)  # the main path's shape
-    worst = max(worst, _compare_k4(rgb, a, b))
-    ms = time_ms(lambda: k4.embed_epilogue(rgb, a, b), 5)
-    plain = time_ms(lambda: k4.embed_epilogue_reference(rgb, a, b), 5)
+    rgb, delta, idx = _epilogue_inputs(48, 1080, 1920)  # the main path's shape
+    worst = max(worst, _compare_k4(rgb, delta, idx))
     bsz, h, w = rgb.shape[:3]
-    # An (H, n) @ (n, W) product per image; u8 in and out, bf16 factors.
-    bd = bound(2 * bsz * h * w * N, 6 * bsz * h * w + 2 * bsz * N * (h + w),
-               BF16_PEAK)
-    log("k4_time", shape=[48, 1080, 1920], n=N, ms=ms, plain_ms=plain, **bd)
+    a, b = dct.sparse_idct_factors(delta, idx, h, w)
+    at = a.transpose(-1, -2)
+    ms = time_ms(lambda: k4.embed_epilogue(rgb, delta, idx), 5)
+    plain = time_ms(lambda: k4.embed_epilogue_reference(rgb, delta, idx), 5)
+    # No one library call computes the function; the product alone is.
+    product = time_ms(lambda: dct.matmul_bf16(at, b), 5)
+    # An (H, n) @ (n, W) product per image; u8 in and out, the updates and
+    # their int64 indices, the two f32 inverse bases.
+    bd = bound(2 * bsz * h * w * N,
+               6 * bsz * h * w + 12 * bsz * N + 4 * (h * h + w * w), BF16_PEAK)
+    log("k4_time", shape=[48, 1080, 1920], n=N, ms=ms, plain_ms=plain,
+        product_matmul_ms=product, share_of_bound=bd["bound_ms"] / ms, **bd)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "library_ms": None, **bd}
 
@@ -684,10 +708,12 @@ def phase_k7() -> dict:
         # u8 and dY in; u8 (or f32) out.
         out_bytes = rgb.numel() * (1 if quantize else 4)
         bd = bound(0, rgb.numel() + 4 * dy.numel() + out_bytes, F32_PEAK)
+        ms = time_ms(lambda: k7.add_quantize(rgb, dy, quantize), 5)
         fields.update({
-            f"{mode}_ms": time_ms(lambda: k7.add_quantize(rgb, dy, quantize), 5),
+            f"{mode}_ms": ms,
             f"{mode}_plain_ms": time_ms(
                 lambda: k7.add_quantize_reference(rgb, dy, quantize), 3),
+            f"{mode}_share_of_bound": bd["bound_ms"] / ms,
             **{f"{mode}_{key}": v for key, v in bd.items()}})
     # The form the card ran before K7: product and sum rounded apart.
     fields["two_rounding_ms"] = time_ms(lambda: colorspace.f32_to_u8(
@@ -824,12 +850,11 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
         box["iv"] = run("select", lambda: ranking.approx_top_indices(
             box["plane"], N, cfg.ordering))
         idx, vals = box["iv"]
-        box["ab"] = run("modulate_and_factors", lambda: tp._sparse_idct_factors(
-            modulation.embed_marks(vals, marks[None].expand(
-                rgb.shape[0], *marks.shape), cfg.insertion.method,
-                cfg.insertion.alpha) - vals, idx, h, w))
-        box["marked"] = run("k4_epilogue",
-                            lambda: embed_epilogue(rgb, *box["ab"]))
+        box["delta"] = run("modulate", lambda: modulation.embed_marks(
+            vals, marks[None].expand(rgb.shape[0], *marks.shape),
+            cfg.insertion.method, cfg.insertion.alpha) - vals)
+        box["marked"] = run("k4_epilogue", lambda: embed_epilogue(
+            rgb, box["delta"], idx))
         box["td"] = run("k1_pair_pass",
                         lambda: luma_pass(box["marked"], rgb))
         run("read_dot_at", lambda: dct.dct2_dot_at(

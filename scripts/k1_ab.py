@@ -38,13 +38,13 @@ REPS = 5
 U = 2.0 ** -24
 
 
-def _ptxas(pkg) -> list[str]:
-    """ptxas's register, spill and shared-memory lines for K1's and K1f's
-    sources."""
+def _ptxas(pkg, names=("luma_pass.cu", "fold_pass.cu")) -> list[str]:
+    """ptxas's register, spill and shared-memory lines for the package's
+    sources ``names`` (K1's and K1f's by default)."""
     from spread_spectrum_watermarking_torch.kernels import _build
 
     lines = []
-    for name in ("luma_pass.cu", "fold_pass.cu"):
+    for name in names:
         out = subprocess.run([_build._nvcc(), *_build.FLAGS, "-Xptxas=-v",
                               "-c", "-o", "/dev/null",
                               str(pkg / "csrc" / name)],

@@ -17,9 +17,18 @@
 // Bound on the H100: at 48x1080x1920 it reads 298.6 MB of u8 and 398.1 MB
 // of dY and writes 298.6 MB of u8 (or 1194 MB of f32), with a few
 // operations a byte: memory bounds it at 0.30 ms (0.56 ms) at 3.35 TB/s.
-// The design moves each byte once: a thread takes four pixels, their 12
-// bytes of u8 as three 4-byte words and their dY as one 16-byte vector,
-// and writes three words (or three 16-byte vectors) back.
+// The design moves each byte once. u8 mode: a thread takes four pixels,
+// their 12 bytes of u8 as three 4-byte words and their dY as one 16-byte
+// vector, and writes three words back. f32 mode: one thread to each
+// 16-byte output vector (four subpixels, of two pixels), so that each warp
+// store covers 512 contiguous bytes of the f32 stream, two thirds of the
+// bytes moved; it reads the vector's rgb word and the two dY values its
+// subpixels touch, which neighbouring lanes share in L1. (Four pixels a
+// thread, as in u8 mode, wrote three 16-byte vectors 48 bytes apart: each
+// warp store spanned 1.5 KB at a third of its bytes, 35% of the bound.)
+// Measured at 48x1080x1920 (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/k4_ab.py, the two mappings in one call): f32 mode 0.72 ms against
+// 1.40 for four pixels a thread; u8 mode 0.38 in both.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -36,14 +45,13 @@ __device__ __forceinline__ uint32_t quantize(float v) {
   return uint32_t(floorf(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f)));
 }
 
-// rgb: npix * 3 u8; dy: npix f32; out: npix * 3 u8 (kU8) or f32. `vec`:
-// rgb 4-byte and dy and out 16-byte aligned, so groups of four pixels are
-// read and written as vectors; the rest (and all, without `vec`) one
-// subpixel at a time.
-template <bool kU8>
+// u8 mode. rgb: npix * 3 u8; dy: npix f32; out: npix * 3 u8. `vec`: rgb
+// 4-byte and dy and out 16-byte aligned, so groups of four pixels are read
+// and written as vectors; the rest (and all, without `vec`) one subpixel at
+// a time.
 __global__ void __launch_bounds__(kThreads)
 add_quantize_kernel(const uint8_t* __restrict__ rgb,
-                    const float* __restrict__ dy, void* __restrict__ out,
+                    const float* __restrict__ dy, uint8_t* __restrict__ out,
                     long long npix, bool vec) {
   const long long stride = (long long)gridDim.x * kThreads;
   const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -57,25 +65,60 @@ add_quantize_kernel(const uint8_t* __restrict__ rgb,
 #pragma unroll
     for (int i = 0; i < 12; ++i)
       v[i] = add_clamped((words[i / 4] >> (8 * (i % 4))) & 255u, d[i / 3]);
-    if (kU8) {
-      uint32_t* dst = reinterpret_cast<uint32_t*>(out) + 3 * g;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out) + 3 * g;
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        dst[k] = quantize(v[4 * k]) | quantize(v[4 * k + 1]) << 8
-                 | quantize(v[4 * k + 2]) << 16 | quantize(v[4 * k + 3]) << 24;
-    } else {
-      float4* dst = reinterpret_cast<float4*>(out) + 3 * g;
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        dst[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-    }
+    for (int k = 0; k < 3; ++k)
+      dst[k] = quantize(v[4 * k]) | quantize(v[4 * k + 1]) << 8
+               | quantize(v[4 * k + 2]) << 16 | quantize(v[4 * k + 3]) << 24;
   }
   // The subpixels after the last whole group.
-  for (long long i = 12 * groups + first; i < 3 * npix; i += stride) {
-    const float val = add_clamped(rgb[i], dy[i / 3]);
-    if (kU8) reinterpret_cast<uint8_t*>(out)[i] = uint8_t(quantize(val));
-    else reinterpret_cast<float*>(out)[i] = val;
+  for (long long i = 12 * groups + first; i < 3 * npix; i += stride)
+    out[i] = uint8_t(quantize(add_clamped(rgb[i], dy[i / 3])));
+}
+
+// f32 mode. out: npix * 3 f32. `vec`: rgb 4-byte and out 16-byte aligned,
+// so output vector q (subpixels 4q .. 4q + 3) is one rgb word in and one
+// 16-byte store out, kUnroll vectors a thread in flight at once; the
+// subpixels after the last whole vector (and all, without `vec`) one at a
+// time.
+constexpr int kUnroll = 4;
+
+__global__ void __launch_bounds__(kThreads)
+add_f32_kernel(const uint8_t* __restrict__ rgb, const float* __restrict__ dy,
+               float* __restrict__ out, long long npix, bool vec) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long vectors = vec ? 3 * npix / 4 : 0;
+  for (long long q0 = first; q0 < vectors; q0 += kUnroll * stride) {
+    uint32_t word[kUnroll];
+    float d0[kUnroll], d1[kUnroll];
+    int o[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long q = q0 + u * stride;
+      if (q >= vectors) break;
+      // Subpixel 4q is channel o of pixel p0; subpixel 4q + 3 lies in
+      // pixel p0 + 1 (< npix, since 4q + 3 < 3 npix).
+      const long long p0 = 4 * q / 3;
+      o[u] = int(4 * q - 3 * p0);
+      word[u] = reinterpret_cast<const uint32_t*>(rgb)[q];
+      d0[u] = dy[p0];
+      d1[u] = dy[p0 + 1];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long q = q0 + u * stride;
+      if (q >= vectors) break;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = add_clamped((word[u] >> (8 * i)) & 255u,
+                           o[u] + i >= 3 ? d1[u] : d0[u]);
+      reinterpret_cast<float4*>(out)[q] = make_float4(v[0], v[1], v[2], v[3]);
+    }
   }
+  for (long long i = 4 * vectors + first; i < 3 * npix; i += stride)
+    out[i] = add_clamped(rgb[i], dy[i / 3]);
 }
 
 }  // namespace
@@ -86,16 +129,27 @@ add_quantize_kernel(const uint8_t* __restrict__ rgb,
 extern "C" int ssw_add_quantize(const uint8_t* rgb, const float* dy, void* out,
                                 long long npix, int u8_out,
                                 cudaStream_t stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(rgb) % 4 == 0
-                   && reinterpret_cast<uintptr_t>(dy) % 16 == 0
-                   && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long work = vec ? npix / 4 + 3 * (npix % 4) : 3 * npix;
+  const bool rgb4 = reinterpret_cast<uintptr_t>(rgb) % 4 == 0;
+  const bool out16 = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // Threads needed: one per group of four pixels (u8) or per output vector
+  // (f32, kUnroll a thread), one per subpixel of the rest.
+  long long work;
+  bool vec;
+  if (u8_out) {
+    vec = rgb4 && out16 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+    work = vec ? npix / 4 + 3 * (npix % 4) : 3 * npix;
+  } else {
+    vec = rgb4 && out16;
+    work = vec ? (3 * npix / 4 + kUnroll - 1) / kUnroll + 3 : 3 * npix;
+  }
   const long long blocks_needed = (work + kThreads - 1) / kThreads;
   const int blocks = int(blocks_needed < 132 * 16 ? blocks_needed : 132 * 16);
   if (blocks == 0) return int(cudaSuccess);
   if (u8_out)
-    add_quantize_kernel<true><<<blocks, kThreads, 0, stream>>>(rgb, dy, out, npix, vec);
+    add_quantize_kernel<<<blocks, kThreads, 0, stream>>>(
+        rgb, dy, static_cast<uint8_t*>(out), npix, vec);
   else
-    add_quantize_kernel<false><<<blocks, kThreads, 0, stream>>>(rgb, dy, out, npix, vec);
+    add_f32_kernel<<<blocks, kThreads, 0, stream>>>(
+        rgb, dy, static_cast<float*>(out), npix, vec);
   return int(cudaGetLastError());
 }

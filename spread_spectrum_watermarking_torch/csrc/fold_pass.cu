@@ -171,9 +171,9 @@ int launch(const float* x, const __nv_bfloat16* basis, __nv_bfloat16* work,
   const ssw::wg::Output o =
       rows ? ssw::wg::Output{out, plane, w, 2LL * w, 1, half, w, pairs}
            : ssw::wg::Output{out, plane, 1, 2, w, half, h, false};
-  err = ssw::wg::launch_gemm<kP, float>(halves, fold, o, cdiv(half, kRows),
-                                        cdiv(other, kRows), ktiles, batch, 2,
-                                        stream);
+  err = ssw::wg::launch_gemm<kP>(halves, fold, ssw::wg::StoreOut<float>{o},
+                                 cdiv(half, kRows), cdiv(other, kRows), ktiles,
+                                 batch, 2, stream);
   return int(err);
 }
 

@@ -186,9 +186,10 @@ int launch(const uint8_t* rgb, const uint8_t* base,
   // with A = C in landscape and A = y in portrait.
   const bool pairs = w % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0;
   const ssw::wg::Output o{out, (long long)h * w, 0, w, 1, h, w, pairs};
-  err = ssw::wg::launch_gemm<kP, __nv_bfloat16>(
-      landscape ? basis_op : luma, landscape ? luma : basis_op, o,
-      cdiv(h, kRows), cdiv(w, kRows), ktiles, batch, 1, stream);
+  err = ssw::wg::launch_gemm<kP>(
+      landscape ? basis_op : luma, landscape ? luma : basis_op,
+      ssw::wg::StoreOut<__nv_bfloat16>{o}, cdiv(h, kRows), cdiv(w, kRows),
+      ktiles, batch, 1, stream);
   return int(err);
 }
 

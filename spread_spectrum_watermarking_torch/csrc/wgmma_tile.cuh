@@ -1,6 +1,7 @@
-// The Hopper bf16 mainloop shared by K1 (csrc/luma_pass.cu) and K1f
-// (csrc/fold_pass.cu): a batched product D = A B^T of two operands that are
-// already laid out, tile by tile, as wgmma reads them from shared memory.
+// The Hopper bf16 mainloop shared by K1 (csrc/luma_pass.cu), K1f
+// (csrc/fold_pass.cu) and K4 (csrc/embed_epilogue.cu): a batched product
+// D = A B^T of two operands that are already laid out, tile by tile, as
+// wgmma reads them from shared memory.
 //
 // Operands. Each operand is a matrix X[r][k] (r the output rows of A, or
 // the output columns of B; k the contracted axis) stored in device memory as
@@ -12,11 +13,17 @@
 // Accelerator's bulk engine makes (cp.async.bulk, completed on an mbarrier)
 // without a tensor map and without touching a register. The bases are laid
 // out so once on the host and cached (kernels/_tiles.py); the transformed
-// operand (K1's luma, K1f's even/odd fold) is written so by the kernel's own
-// first launch, which also reads the raw data once: the transform runs once
-// per element (recompute factor 1, where the wmma design before it redid
-// the luma once per 128-row output tile, 9 times at 1080p), for one write
-// and one read of the bf16 operand in device memory.
+// operand (K1's luma, K1f's even/odd fold, K4's two factors) is written so
+// by the kernel's own first launch, which also reads the raw data once: the
+// transform runs once per element (recompute factor 1, where the wmma
+// design before it redid the luma once per 128-row output tile, 9 times at
+// 1080p), for one write and one read of the bf16 operand in device memory.
+//
+// Epilogue. What becomes of a tile's f32 sums is a policy the kernel is
+// instantiated with: StoreOut (K1, K1f) stores them to an Output as bf16 or
+// f32; K4's policy adds them to a u8 image. A policy names the shared
+// memory of its own that it needs (kSmemBytes, after the stages) and is
+// called by every consumer thread after a tile's last stage.
 //
 // Block: 2 consumer warpgroups (64 output rows each) and one producer warp,
 // one block per SM, persistent over the output tiles (gemm_kernel).
@@ -105,9 +112,9 @@ struct Stage {
 template <int kParts>
 constexpr int kStages = kParts == 1 ? 6 : 3;
 
-template <int kParts>
+template <int kParts, int S, typename Epilogue>
 constexpr size_t smem_bytes() {
-  return kStages<kParts> * sizeof(Stage<kParts>) + 1024;  // + alignment
+  return S * sizeof(Stage<kParts>) + Epilogue::kSmemBytes + 1024;  // + alignment
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -249,20 +256,33 @@ __device__ __forceinline__ void store_tile(const Output& o, const TileAt& t,
   }
 }
 
+// The epilogue of K1 and K1f: store_tile to `o`.
+template <typename Out>
+struct StoreOut {
+  static constexpr size_t kSmemBytes = 0;
+  Output o;
+  __device__ __forceinline__ void operator()(const TileAt& t,
+                                             const float (&acc)[64],
+                                             unsigned char*) const {
+    store_tile<Out>(o, t, acc);
+  }
+};
+
 // Persistent: each block walks the 128 x 128 output tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ... (`tiles` in all, m_tiles x n_tiles for each
-// of the products), each over `ktiles` stages of k. The stage ring runs on
-// across tiles, so the producer fills the next tile's first stages while
-// the consumers store the last one's outputs.
-template <int kParts, typename Out>
+// of the products), each over `ktiles` stages of k, in a ring of S stages,
+// and hands each tile's sums to `epi`. The stage ring runs on across tiles,
+// so the producer fills the next tile's first stages while the consumers
+// run the last one's epilogue.
+template <int kParts, int S, typename Epilogue>
 __global__ void __launch_bounds__(kThreads, 1)
-gemm_kernel(Operand a, Operand b, Output o, int m_tiles, int n_tiles,
+gemm_kernel(Operand a, Operand b, Epilogue epi, int m_tiles, int n_tiles,
             int tiles, int ktiles, int parities) {
-  constexpr int S = kStages<kParts>;
   constexpr uint32_t kStageBytes = 2 * kParts * kTile * sizeof(__nv_bfloat16);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Stage<kParts>* st = reinterpret_cast<Stage<kParts>*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  unsigned char* epi_smem = reinterpret_cast<unsigned char*>(st + S);
   __shared__ __align__(8) uint64_t full[S];
   __shared__ __align__(8) uint64_t empty[S];
 
@@ -340,19 +360,22 @@ gemm_kernel(Operand a, Operand b, Output o, int m_tiles, int n_tiles,
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
     }
-    store_tile<Out>(o, t, acc);
+    epi(t, acc, epi_smem);
   }
 }
 
 // Launches gemm_kernel on `stream`: one block per SM (at most one per
 // tile) over the m_tiles x n_tiles output tiles of each of the batch *
-// parities products.
-template <int kParts, typename Out>
-cudaError_t launch_gemm(const Operand& a, const Operand& b, const Output& o,
-                        int m_tiles, int n_tiles, int ktiles, int batch,
-                        int parities, cudaStream_t stream) {
-  auto kernel = gemm_kernel<kParts, Out>;
-  constexpr size_t smem = smem_bytes<kParts>();
+// parities products, S stages in the ring.
+template <int kParts, typename Epilogue, int S = kStages<kParts>>
+cudaError_t launch_gemm(const Operand& a, const Operand& b,
+                        const Epilogue& epi, int m_tiles, int n_tiles,
+                        int ktiles, int batch, int parities,
+                        cudaStream_t stream) {
+  auto kernel = gemm_kernel<kParts, S, Epilogue>;
+  constexpr size_t smem = smem_bytes<kParts, S, Epilogue>();
+  static_assert(smem + 2 * S * sizeof(uint64_t) <= 232448,
+                "stages and epilogue exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -363,7 +386,7 @@ cudaError_t launch_gemm(const Operand& a, const Operand& b, const Output& o,
   if (err != cudaSuccess) return err;
   const int tiles = m_tiles * n_tiles * batch * parities;
   kernel<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
-      a, b, o, m_tiles, n_tiles, tiles, ktiles, parities);
+      a, b, epi, m_tiles, n_tiles, tiles, ktiles, parities);
   return cudaGetLastError();
 }
 

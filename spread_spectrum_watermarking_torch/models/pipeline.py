@@ -120,26 +120,6 @@ def _rank_and_values_fast(rgb: torch.Tensor, n: int, ordering, precision,
     return _rank_from_half(t, n, ordering, custom_metric, ax, rank_version)
 
 
-def _sparse_factors_f32(delta: torch.Tensor, idx: torch.Tensor, h: int,
-                        w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k-major f32 factors of dY = (4/(W*H)) D_h[:, rows] diag(delta)
-    D_w[:, cols]^T, without the scale: ``D_h[:, rows] * delta`` as
-    (B, n, H) and ``D_w[:, cols]`` as (B, n, W)."""
-    rows = torch.div(idx, w, rounding_mode="floor")
-    cols = idx % w
-    dh = dct.basis_tensor(h, delta.device, torch.float32, inverse=True)
-    dw = dct.basis_tensor(w, delta.device, torch.float32, inverse=True)
-    return dh.t()[rows] * delta[..., None], dw.t()[cols]
-
-
-def _sparse_idct_factors(delta: torch.Tensor, idx: torch.Tensor, h: int,
-                         w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4's k-major bf16 factors: the scale folded into ``a`` before the
-    bf16 rounding, as the JAX DEFAULT branch rounds them."""
-    a, b = _sparse_factors_f32(delta, idx, h, w)
-    return (a * inverse_scale(h, w)).to(torch.bfloat16), b.to(torch.bfloat16)
-
-
 def _sparse_idct_delta(delta: torch.Tensor, idx: torch.Tensor, h: int,
                        w: int, precision: Precision = Precision.DEFAULT
                        ) -> torch.Tensor:
@@ -147,8 +127,8 @@ def _sparse_idct_delta(delta: torch.Tensor, idx: torch.Tensor, h: int,
     DEFAULT; otherwise the (H, n) @ (n, W) product of the factors at the
     tier, then times ``f32(4/(W*H))``, as the JAX package orders it."""
     if precision is Precision.DEFAULT:
-        return delta_plane(*_sparse_idct_factors(delta, idx, h, w))
-    a, b = _sparse_factors_f32(delta, idx, h, w)
+        return delta_plane(*dct.sparse_idct_factors(delta, idx, h, w))
+    a, b = dct.sparse_factors_f32(delta, idx, h, w)
     return dct.matmul(a.transpose(-1, -2), b, precision) * inverse_scale(h, w)
 
 
@@ -183,8 +163,8 @@ def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig,
     idx, original, new_values = _modulated(rgb, marks, config)
     delta = new_values - original
     if quantize and rgb.dtype == torch.uint8:
-        a, b = _sparse_idct_factors(delta, idx, h, w)
-        return embed_epilogue(rgb.contiguous(), a, b), idx, original
+        return (embed_epilogue(rgb.contiguous(), delta.to(torch.float32), idx),
+                idx, original)
     out = colorspace.add_luma_delta_f32(
         rgb, _sparse_idct_delta(delta, idx, h, w, Precision.DEFAULT))
     return (colorspace.f32_to_u8(out) if quantize else out), idx, original

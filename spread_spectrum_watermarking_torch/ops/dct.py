@@ -371,3 +371,25 @@ def dct2_coeffs_at(y: torch.Tensor, idx: torch.Tensor, *, ortho: bool = False,
                          precision)
     return _dot_rows(matmul(y, cw.t(), precision), rows, cols, ch, cw, -1,
                      precision)
+
+
+def sparse_factors_f32(delta: torch.Tensor, idx: torch.Tensor, h: int,
+                       w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k-major f32 factors of the sparse inverse of updates ``delta``
+    at flat indices ``idx`` (..., n), dY = (4/(W*H)) D_h[:, rows]
+    diag(delta) D_w[:, cols]^T, without the scale: ``D_h[:, rows] * delta``
+    as (..., n, H) and ``D_w[:, cols]`` as (..., n, W)."""
+    rows, cols = _rows_cols(idx, w)
+    dh = basis_tensor(h, delta.device, torch.float32, inverse=True)
+    dw = basis_tensor(w, delta.device, torch.float32, inverse=True)
+    return dh.t()[rows] * delta[..., None], dw.t()[cols]
+
+
+def sparse_idct_factors(delta: torch.Tensor, idx: torch.Tensor, h: int,
+                        w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The DEFAULT tier's k-major bf16 factors (kernel K4's operands): the
+    scale folded into ``a`` before the bf16 rounding, as the JAX DEFAULT
+    branch rounds them."""
+    a, b = sparse_factors_f32(delta, idx, h, w)
+    return ((a * dct2d_fused.inverse_scale(h, w)).to(torch.bfloat16),
+            b.to(torch.bfloat16))

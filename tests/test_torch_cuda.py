@@ -100,33 +100,73 @@ def test_luma_pass_high_kernel_matches_plain(cuda, h, w):
         assert bool(((t - r).abs() <= _k1_bound(img, None, t, r, True)).all())
 
 
-@pytest.mark.parametrize("h,w", GEOMETRIES)
-def test_embed_epilogue_kernel_matches_plain(cuda, h, w):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    rgb, _ = _images(1, h, w, cuda)
-    idx = torch.randint(1, h * w, (2, 200), generator=gen, device=cuda)
-    delta = torch.randn((2, 200), generator=gen, device=cuda) * 20.0
-    a, b = tp._sparse_idct_factors(delta, idx, h, w)
-    before = k4.LAUNCHES
-    t = k4.embed_epilogue(rgb, a, b).int()
+def _updates(h, w, n, device, seed=0, b=2):
+    """(delta, idx) as the embed path makes them: n distinct flat indices,
+    the DC among them where n > 1, and updates of either sign, scaled with
+    the image as coefficients are, so that even one moves pixels."""
+    rng = np.random.default_rng(seed + n)
+    idx = np.stack([rng.choice(h * w, n, replace=False) for _ in range(b)])
+    if n > 1:
+        idx[:, 0] = 0
+    delta = (rng.standard_normal((b, n)) * (h * w / 200.0)).astype(np.float32)
+    return torch.from_numpy(delta).to(device), torch.from_numpy(idx).to(device)
+
+
+# K4's geometries: also a right edge inside a tile with 16-byte rows.
+K4_GEOMETRIES = GEOMETRIES + [(129, 272)]
+
+
+@pytest.mark.parametrize("n", [1, 63, 200, 1000])
+@pytest.mark.parametrize("h,w", K4_GEOMETRIES)
+def test_factor_tile_pass_bit_equal_to_plain(cuda, h, w, n):
+    delta, idx = _updates(h, w, n, cuda)
+    before = (k4.FACTOR_LAUNCHES, k4.LAUNCHES)
+    got = k4.factor_tiles(delta, idx, h, w)
     torch.cuda.synchronize()
-    assert k4.LAUNCHES == before + 1
-    r = k4.embed_epilogue_reference(rgb, a, b).int()
-    assert int((t - r).abs().max()) <= 1
+    assert (k4.FACTOR_LAUNCHES, k4.LAUNCHES) == (before[0] + 1, before[1])
+    for t, r in zip(got, k4.factor_tiles_reference(delta, idx, h, w)):
+        assert t.shape == r.shape and torch.equal(t, r)
+
+
+@pytest.mark.parametrize("n", [1, 64, 200, 1000])
+@pytest.mark.parametrize("h,w", K4_GEOMETRIES)
+def test_embed_epilogue_kernel_matches_plain(cuda, h, w, n):
+    # Within one u8 step (dY's f32 sums in another order), and at n = 1
+    # (one exact product a pixel) bit for bit; from an aligned image
+    # (16-byte vectors where W % 16 == 0) and from one a byte into its
+    # storage (the byte path).
+    rgb, _ = _images(1, h, w, cuda)
+    delta, idx = _updates(h, w, n, cuda, seed=1)
+    r = k4.embed_epilogue_reference(rgb, delta, idx).int()
+    assert bool((r != rgb.int()).any())  # the update reaches the pixels
+    for img in (rgb, _one_byte_in(rgb)):
+        before = k4.LAUNCHES
+        t = k4.embed_epilogue(img, delta, idx)
+        torch.cuda.synchronize()
+        assert k4.LAUNCHES == before + 1
+        assert t.dtype == torch.uint8 and t.shape == rgb.shape
+        assert int((t.int() - r).abs().max()) <= 1
+        # Only rounding ties of dY's sums differ, never a whole share.
+        assert float((t.int() != r).float().mean()) <= 0.01
+        if n == 1:
+            assert torch.equal(t.int(), r)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     rgb, near = _images(2, 37, 59, cuda)
-    a = torch.zeros((2, 4, 37), dtype=torch.bfloat16, device=cuda)
-    b = torch.zeros((2, 4, 59), dtype=torch.bfloat16, device=cuda)
+    delta, idx = _updates(37, 59, 4, cuda)
     with pytest.raises(ValueError):
         k1.luma_pass(rgb.transpose(1, 2))  # not contiguous
     with pytest.raises(ValueError):
         k1.luma_pass(rgb, near[:1])  # base of another shape
     with pytest.raises(ValueError):
-        k4.embed_epilogue(rgb, a.float(), b)  # f32 factor
+        k4.embed_epilogue(rgb, delta, idx.int())  # int32 indices
     with pytest.raises(ValueError):
-        k4.embed_epilogue(rgb, a.cpu(), b)  # factor on another device
+        k4.embed_epilogue(rgb.float(), delta, idx)  # f32 image
+    with pytest.raises(ValueError):
+        k4.embed_epilogue(rgb, delta.cpu(), idx.cpu())  # CPU/CUDA mix
+    with pytest.raises(ValueError):
+        k4.embed_epilogue(rgb.transpose(1, 2), delta, idx)  # not contiguous
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
@@ -248,12 +288,16 @@ def test_folded_transforms_launch_k1f_at_the_fast_tiers(cuda):
 @pytest.mark.parametrize("npix", [4 * 37 * 59, 37 * 59, 1])
 def test_add_quantize_kernel_bit_equal_to_plain(cuda, npix):
     # Both correctly rounded: bit for bit, in both modes, with whole groups
-    # of four pixels, a tail, and a misaligned start (the scalar path).
+    # of four pixels (u8) or 16-byte vectors (f32), a tail, and misaligned
+    # starts: the image three bytes or one byte in (the scalar paths), dY
+    # one float in (the scalar path in u8 mode, vectors in f32 mode).
     gen = torch.Generator(device=cuda).manual_seed(npix)
     rgb = torch.randint(0, 256, (npix + 1, 3), generator=gen, device=cuda,
                         dtype=torch.uint8)
     dy = torch.randn((npix + 1,), generator=gen, device=cuda) * 0.02
-    for r, d in ((rgb[:npix], dy[:npix]), (rgb[1:], dy[1:])):
+    views = ((rgb[:npix], dy[:npix]), (rgb[1:], dy[1:]),
+             (rgb[:npix], dy[1:]), (_one_byte_in(rgb[:npix]), dy[:npix]))
+    for r, d in views:
         for quantize in (False, True):
             before = k7.LAUNCHES
             t = k7.add_quantize(r, d, quantize)

@@ -3,6 +3,7 @@ the CPU dispatch rule. The kernels themselves run only on a CUDA card:
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold them against these
 plain versions there."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from spread_spectrum_watermarking_torch.kernels import _build
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 from spread_spectrum_watermarking_torch.models import pipeline as tp
+from spread_spectrum_watermarking_torch.ops import dct as td
 
 GEOMETRIES = [(64, 96), (96, 64), (37, 59)]
 
@@ -73,13 +75,14 @@ def test_embed_epilogue_matches_jax(h, w):
     idx = np.stack([rng.choice(h * w - 1, 200, replace=False) + 1
                     for _ in range(2)])
     delta = (rng.standard_normal((2, 200)) * 20.0).astype(np.float32)
-    dy = jp._sparse_idct_delta(jnp.asarray(delta), jnp.asarray(idx, jnp.int32),
-                               h, w, JPrecision.DEFAULT)
-    j = np.asarray(jc.add_luma_delta_u8(jnp.asarray(rgb), dy)).astype(int)
-    a, b = tp._sparse_idct_factors(torch.from_numpy(delta),
-                                   torch.from_numpy(idx), h, w)
-    t_dy = tp._sparse_idct_delta(torch.from_numpy(delta),
-                                 torch.from_numpy(idx), h, w).float().numpy()
+    dy = jax.jit(lambda d, i: jp._sparse_idct_delta(d, i, h, w,
+                                                    JPrecision.DEFAULT))(
+        jnp.asarray(delta), jnp.asarray(idx, jnp.int32))
+    j = np.asarray(jax.jit(jc.add_luma_delta_u8)(jnp.asarray(rgb), dy)
+                   ).astype(int)
+    delta_t, idx_t = torch.from_numpy(delta), torch.from_numpy(idx)
+    a, b = td.sparse_idct_factors(delta_t, idx_t, h, w)
+    t_dy = tp._sparse_idct_delta(delta_t, idx_t, h, w).float().numpy()
     # dY sums n products that cancel: one bf16 ulp, plus the gamma_n bound
     # of an f32 sum of n terms taken in another order, 2 n 2^-24 sum |a b|.
     abs_sum = np.abs(a.double().numpy()).transpose(0, 2, 1) @ np.abs(
@@ -87,7 +90,8 @@ def test_embed_epilogue_matches_jax(h, w):
     bound = (bf16_ulp(np.maximum(np.abs(t_dy), np.abs(_f32(dy))))
              + 2 * 200 * 2.0 ** -24 * abs_sum)
     assert np.all(np.abs(t_dy - _f32(dy)) <= bound)
-    t = k4.embed_epilogue_reference(torch.from_numpy(rgb), a, b).numpy()
+    t = k4.embed_epilogue_reference(torch.from_numpy(rgb), delta_t,
+                                    idx_t).numpy()
     diff = np.abs(t.astype(int) - j)
     assert diff.max() <= 1
     assert np.mean(diff == 0) >= 0.999
@@ -97,15 +101,15 @@ def test_embed_epilogue_matches_jax(h, w):
 def test_cpu_tensors_take_the_plain_path():
     rgb = torch.from_numpy(_textures(5, 37, 59))
     base = torch.from_numpy(_textures(6, 37, 59))
-    a = torch.randn(2, 20, 37).to(torch.bfloat16)
-    b = torch.randn(2, 20, 59).to(torch.bfloat16)
+    delta = torch.randn(2, 20)
+    idx = torch.randint(0, 37 * 59, (2, 20))
     before = (k1.LAUNCHES, k4.LAUNCHES)
     for mode in (None, base):
         torch.testing.assert_close(k1.luma_pass(rgb, mode),
                                    k1.luma_pass_reference(rgb, mode),
                                    rtol=0, atol=0)
-    torch.testing.assert_close(k4.embed_epilogue(rgb, a, b),
-                               k4.embed_epilogue_reference(rgb, a, b),
+    torch.testing.assert_close(k4.embed_epilogue(rgb, delta, idx),
+                               k4.embed_epilogue_reference(rgb, delta, idx),
                                rtol=0, atol=0)
     assert (k1.LAUNCHES, k4.LAUNCHES) == before
     assert _build._lib is None  # nothing was built or loaded
@@ -117,8 +121,6 @@ def test_kernel_reciprocals_are_the_ones_xla_multiplies_by():
     under jit; the port's colorspace uses the same ones."""
     import pathlib
     import re
-
-    import jax
 
     from spread_spectrum_watermarking_torch.ops import colorspace as tc
 
