@@ -43,10 +43,21 @@ Phases, one line of output each, any failure exits non-zero:
    on 1/f textures, with the kernels' launch counts from that one call, the
    detection checks, the detect path's bit-equality, agreement with the
    CPU run of the same code on a small input, a stage breakdown,
-   images/s on random u8 chained from call to call as ``bench.py`` does,
-   and the device's idle share under ``torch.profiler``;
+   images/s from the port's bench harness (``bench.run_verified_bench``:
+   random u8, each call marking the last call's output, the median of
+   three timed chains), beside the rate of one timed call on the same
+   kind of input (the yardstick before the harness), and the device's idle
+   share under ``torch.profiler``;
 6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, its pair
    mode and K4 launched in the one call, K6 not;
+6b. rank generation 1 (``rank_version=1``), the same checks at DEFAULT and
+   at HIGH (K1, its high mode at HIGH, and K4 launched), its rate from the
+   harness's ``_timed_chain``;
+6c. the custom callables on 4 x 1080p at each tier, each a reimplementation
+   of a built-in held to it: Option2 as ``custom_insert`` bit for bit, its
+   inverse as ``custom_extract`` within 1e-3 sigma, the ENERGY metric as
+   ``custom_ordering`` (the same indices at HIGHEST, a share of at least
+   0.95 in common at the fast tiers), with the tier's kernels launched;
 7. the fast tiers' plain-op branches on 4 x 1080p: the full inverse at
    DEFAULT and HIGH read back by the fast Reader, float input at DEFAULT,
    ``prepare_base`` at HIGH;
@@ -58,7 +69,16 @@ Phases, one line of output each, any failure exits non-zero:
    the CPU agreement check, Writer/Reader/Tester on one image, a stage
    breakdown, images/s and the idle share;
 9. 4K, batch 8: one ``embed_verified`` on 1/f textures at DEFAULT and one
-   at HIGH, and images/s of each.
+   at HIGH, and images/s of each (the harness, beside the one-call rate);
+10. the bench harness's configs at their JAX defaults on the card: the
+   separate-calls throughput (HIGH), the batch-1 latency, the
+   reader-cached extraction (DEFAULT), the 1024 x 10 000 similarity sweep
+   at each precision and the 1024-image corpus (HIGH, chunk 64; every
+   image's own mark its top match, above 6 sigma).
+
+The device line also reports, for information only, which of PIL, the
+libjpeg and libpng headers, ``Python.h`` and ``g++`` the machine has (the
+native codec's build needs them).
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, its bound (the larger of its operations over the
@@ -69,6 +89,7 @@ function; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -123,12 +144,18 @@ def pink_texture(rng, h: int, w: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=4)
+def _texture_batch(seed: int, b: int, h: int, w: int) -> np.ndarray:
+    """(b, h, w, 3) u8 textures, kept so that phases on the same seed (each
+    fast tier at both rank generations) make them once."""
+    rng = np.random.default_rng(seed)
+    return np.stack([pink_texture(rng, h, w) for _ in range(b)])
+
+
 def textures(seed: int, b: int, h: int, w: int):
     import torch
 
-    rng = np.random.default_rng(seed)
-    return torch.from_numpy(np.stack([pink_texture(rng, h, w)
-                                      for _ in range(b)])).cuda()
+    return torch.from_numpy(_texture_batch(seed, b, h, w)).cuda()
 
 
 def bf16_ulp(x):
@@ -174,6 +201,31 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _host_tools() -> dict:
+    """Which of PIL, the libjpeg and libpng headers, ``Python.h`` and
+    ``g++`` the host running this script has, as the native codec's build
+    would find them: ``g++`` preprocessing an include of each header."""
+    import importlib.util
+    import shutil
+    import sysconfig
+
+    gxx = shutil.which("g++")
+
+    def finds(header: str, *flags: str) -> bool:
+        if gxx is None:
+            return False
+        src = f"#include <cstdio>\n#include <{header}>\n"
+        return subprocess.run([gxx, "-E", "-x", "c++", "-", "-o", "/dev/null",
+                               *flags], input=src, capture_output=True,
+                              text=True).returncode == 0
+
+    return {"pil": importlib.util.find_spec("PIL") is not None,
+            "gxx": gxx is not None, "jpeglib_h": finds("jpeglib.h"),
+            "png_h": finds("png.h"),
+            "python_h": finds("Python.h",
+                              "-I" + sysconfig.get_paths()["include"])}
+
+
 def phase_device():
     import torch
 
@@ -189,6 +241,7 @@ def phase_device():
         cuda=torch.version.cuda, python=sys.version.split()[0],
         build_seconds=_build.BUILD_INFO["seconds"],
         build_cached=_build.BUILD_INFO["cached"])
+    log("host_tools", **_host_tools())
 
 
 def _compare_k1(rgb, base, precision) -> float:
@@ -746,20 +799,46 @@ def _check_detection(tag: str, ext, marks, gen) -> dict:
 
 def _chained_step(x, marks, cfg):
     """One embed_verified call whose output carries a data dependence on its
-    extraction, so that chained calls cannot overlap (bench.py)."""
+    extraction, so that chained calls cannot overlap (the harness's step,
+    ``bench.run_verified_bench``)."""
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import bench
+
+    marked, ext = wm.embed_verified(x, marks, cfg)
+    return bench._flip(marked, ext)
+
+
+def _harness_rate(batch: int, size: str, precision, iters: int,
+                  rank_version: int = 2) -> dict:
+    """images/s of ``embed_verified`` from the port's bench harness: the
+    median of its three timed chains of ``iters`` calls, every run's rate
+    and the iters. Rank generation 2 runs ``bench.run_verified_bench``
+    itself; generation 1, which the harness's configs do not name, its
+    ``_timed_chain`` on the same inputs and step."""
     import torch
 
     import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import bench
 
-    marked, ext = wm.embed_verified(x, marks, cfg)
-    flip = (ext[0, 0] * 1e-30).to(torch.uint8)
-    marked[0, 0, 0, 0] ^= flip
-    return marked
+    if rank_version == 2:
+        res = bench.run_verified_bench(batch=batch, size=size, iters=iters,
+                                       precision=precision.value)
+        secs, runs = res["ms_per_image"] * batch / 1e3, res["seconds_runs"]
+    else:
+        h, w = bench.parse_size(size)
+        cfg = wm.WriteConfig(precision=precision, rank_version=rank_version)
+        rgb, marks = bench._inputs(np.random.default_rng(0), batch, h, w, N,
+                                   torch.device("cuda"))
+        secs, runs = bench._timed_chain(
+            lambda x: _chained_step(x, marks, cfg), rgb, iters, "cuda")
+    return {"images_per_sec_median": batch / secs,
+            "runs": [batch / r for r in runs], "iters": iters,
+            "timer": "bench._timed_chain, CUDA events, median of 3 chains"}
 
 
 def _images_per_sec(rgb, marks, cfg, runs: int) -> list[float]:
-    """One warm-up, then ``runs`` timed calls, each embedding into the last
-    call's output."""
+    """The yardstick before the harness: one warm-up, then ``runs`` timed
+    calls, each embedding into the last call's output."""
     import torch
 
     imgs = _chained_step(rgb.clone(), marks, cfg)
@@ -781,7 +860,9 @@ def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
     window on the host clock, the device's kernel time in it, the idle share
     and the five kernels that take the most time, each as [name, ms,
     launches recorded] (a kernel the profiler failed to record shows as a
-    launch short of ``calls``)."""
+    launch short of ``calls``). The pipeline's ``ssw.*`` ranges also show
+    on the device's timeline: they are not kernels, so they are kept apart,
+    as the device-side span of each stage summed over the calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -796,15 +877,22 @@ def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
+    spans: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
-            rec[1] += 1
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if getattr(e, "is_user_annotation", False) or e.name.startswith("ssw."):
+            spans[e.name] = spans.get(e.name, 0.0) + ms
+            continue
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += ms
+        rec[1] += 1
     kernel_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return {"calls": calls, "window_ms": window_ms, "kernel_ms": kernel_ms,
             "idle_share": (1.0 - kernel_ms / window_ms) if by_name else None,
+            "stage_spans_ms": spans,
             "top_kernels_ms": [[name.replace("(anonymous namespace)::", "")[:72],
                                 ms, n] for name, (ms, n) in top]}
 
@@ -848,7 +936,7 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
         box["t"] = run(first, lambda: luma_pass(rgb, None, cfg.precision))
         box["plane"] = run("second_pass", lambda: tp._second_pass(box["t"], ax))
         box["iv"] = run("select", lambda: ranking.approx_top_indices(
-            box["plane"], N, cfg.ordering))
+            box["plane"], N, cfg.ordering, version=cfg.rank_version))
         idx, vals = box["iv"]
         box["delta"] = run("modulate", lambda: modulation.embed_marks(
             vals, marks[None].expand(rgb.shape[0], *marks.shape),
@@ -888,19 +976,23 @@ def _zero_kernel_counts() -> None:
     k1f.LAUNCHES = k1f.HIGH_LAUNCHES = k7.LAUNCHES = 0
 
 
-def phase_fast_path(precision, recs: dict) -> None:
-    """One fast tier's path at 1080p batch 48: ``embed_verified`` with the
-    launch counts of that one call (DEFAULT: K1 and K4; HIGH: K1's high
-    mode, its pair mode and K4; never K6), then the checks, the stages,
-    the rate and the profile. ``recs``: the kernel records to fill."""
+def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
+                    iters: int = 64) -> None:
+    """One fast tier's path at 1080p batch 48 and rank generation
+    ``rank_version``: ``embed_verified`` with the launch counts of that one
+    call (DEFAULT: K1 and K4; HIGH: K1's high mode, its pair mode and K4;
+    never K6), then the checks, the stages, the rate (the harness's chains
+    of ``iters`` calls) and the profile. ``recs``: the kernel records to
+    fill with the main path's launches (None for generation 1)."""
     import torch
 
     import spread_spectrum_watermarking_torch as wm
 
     high = precision is wm.Precision.HIGH
-    tag = "high_" if high else ""
-    cfg = wm.WriteConfig(precision=precision)
-    rcfg = wm.ReadConfig(precision=precision)
+    pre = "gen1_" if rank_version == 1 else ""
+    tag = pre + ("high_" if high else "")
+    cfg = wm.WriteConfig(precision=precision, rank_version=rank_version)
+    rcfg = wm.ReadConfig(precision=precision, rank_version=rank_version)
     gen = torch.Generator(device="cuda").manual_seed(8 if high else 3)
     rgb = textures(80 if high else 30, 48, 1080, 1920)
     marks = torch.randn((48, 1, N), generator=gen, device="cuda")
@@ -911,14 +1003,16 @@ def phase_fast_path(precision, recs: dict) -> None:
     torch.cuda.synchronize()
     counts = _kernel_counts()
     if high:
-        recs["luma_pass_high"]["launches"] = counts["k1_high"]
         ran = counts["k1_high"] > 0 and counts["k1"] > 0 and counts["k4"] > 0
+        if recs is not None:
+            recs["luma_pass_high"]["launches"] = counts["k1_high"]
     else:
-        recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
-        recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
-        recs["embed_epilogue"]["launches"] = counts["k4"]
         ran = (counts["k1"] > counts["k1_pair"] > 0 and counts["k4"] > 0
                and counts["k1_high"] == 0)
+        if recs is not None:
+            recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
+            recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
+            recs["embed_epilogue"]["launches"] = counts["k4"]
     if not ran or any(counts[k] for k in ("k6a", "k6b", "k1f", "k1f_high",
                                           "k7")):
         raise AssertionError(f"{precision.value} path launched {counts}")
@@ -930,8 +1024,8 @@ def phase_fast_path(precision, recs: dict) -> None:
         raise AssertionError("detect path differs from embed_verified")
     if marked.shape != rgb.shape or marked.dtype != torch.uint8:
         raise AssertionError("marked output has the wrong shape or type")
-    log("high_path" if high else "main_path", shape=[48, 1080, 1920], n=N,
-        launches=counts, detect_bit_equal=True,
+    log(pre + ("high_path" if high else "main_path"), shape=[48, 1080, 1920],
+        n=N, rank_version=rank_version, launches=counts, detect_bit_equal=True,
         share_pixels_changed=float((marked != rgb).float().mean()), **det)
 
     # The same code on the CPU (plain kernel versions), small input.
@@ -956,11 +1050,15 @@ def phase_fast_path(precision, recs: dict) -> None:
         **_stage_breakdown(rgb, marks[0], cfg))
 
     del marked, ext, ext2, rgb
+    torch.cuda.empty_cache()
+    rate = _harness_rate(48, "1080p", precision, iters, rank_version)
     rand = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
     rates = _images_per_sec(rand, marks, cfg, runs=5)
-    log("high_rate" if high else "main_path_rate", shape=[48, 1080, 1920],
-        n=N, images_per_sec_median=statistics.median(rates), runs=rates)
+    log(pre + ("high_rate" if high else "main_path_rate"),
+        shape=[48, 1080, 1920], n=N, **rate,
+        one_call_images_per_sec_median=statistics.median(rates),
+        one_call_runs=rates)
     log(f"{tag}profile", shape=[48, 1080, 1920], n=N,
         **_device_profile(rand, marks, cfg))
 
@@ -999,6 +1097,111 @@ def phase_fast_options() -> None:
         raise AssertionError("prepare_base at HIGH: bad coefficients or indices")
     log("fast_options", shape=[4, 1080, 1920], n=N,
         float_input_marked_dtype=str(marked.dtype), **out)
+
+
+def phase_custom() -> None:
+    """The custom callables on 4 x 1080p at each tier, each reimplementing
+    a built-in and held to it, with the launch counts of each call: the
+    fast tiers' embed runs K1 and K4 (K1's high mode at HIGH) and their
+    read K1 and its pair mode; HIGHEST's embed K6a and K7 once, its read
+    K6a."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+
+    alpha = 0.1
+    option2 = lambda i, o, w: o * (1.0 + alpha * w)  # noqa: E731
+    inverse = lambda i, b, d: (d - b) / (b * alpha)  # noqa: E731
+    energy = lambda i, v: v * v  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rgb = textures(95, 4, 1080, 1920)
+    marks = torch.randn((4, 1, N), generator=gen, device="cuda")
+
+    def counted(fn):
+        _zero_kernel_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _kernel_counts()
+
+    def launched(counts, fast: bool, write: bool, high: bool) -> bool:
+        if not fast:
+            return counts["k6a"] > 0 and (counts["k7"] == 1 or not write)
+        first = (counts["k1_high"] if high
+                 else counts["k1"] - counts["k1_pair"])
+        return first > 0 and (counts["k4"] > 0 if write
+                              else counts["k1_pair"] > 0)
+
+    for p in (wm.Precision.DEFAULT, wm.Precision.HIGH, wm.Precision.HIGHEST):
+        fast, high = p is not wm.Precision.HIGHEST, p is wm.Precision.HIGH
+        rcfg = wm.ReadConfig(precision=p)
+        builtin = wm.embed(rgb, marks, wm.WriteConfig(precision=p))
+        custom, c_ins = counted(lambda: wm.embed(rgb, marks, wm.WriteConfig(
+            precision=p, custom_insert=option2)))
+        if not torch.equal(custom, builtin):
+            raise AssertionError(f"custom Option2 at {p.value}: not bit-equal "
+                                 "to the built-in")
+        ext = wm.extract(rgb, builtin, N, rcfg)
+        ext_c, c_ext = counted(lambda: wm.extract(rgb, builtin, N, wm.ReadConfig(
+            precision=p, custom_extract=inverse)))
+        own = [torch.diagonal(wm.similarity(e, marks[:, 0])) for e in (ext, ext_c)]
+        gap = float((own[0] - own[1]).abs().max())
+        det = _check_detection(f"custom extract {p.value}", ext_c, marks, gen)
+        if not gap <= 1e-3:
+            raise AssertionError(f"custom extract at {p.value}: {gap} sigma "
+                                 "from the built-in")
+        if fast:
+            a = wm.rank_base(rgb, N, rcfg)[0]
+            b = wm.rank_base(rgb, N, wm.ReadConfig(precision=p,
+                                                   custom_ordering=energy))[0]
+        else:
+            a = wm.prepare_base(rgb, N, rcfg)[1]
+            b = wm.prepare_base(rgb, N, wm.ReadConfig(custom_ordering=energy))[1]
+        share = min(len(set(x.tolist()) & set(y.tolist())) / N
+                    for x, y in zip(a.cpu(), b.cpu()))
+        if share < (0.95 if fast else 1.0) or (not fast and not torch.equal(a, b)):
+            raise AssertionError(f"custom ENERGY ordering at {p.value}: "
+                                 f"{share} of the indices in common")
+        (_, ext_o), c_ord = counted(lambda: wm.embed_verified(
+            rgb, marks, wm.WriteConfig(precision=p, custom_ordering=energy)))
+        det_o = _check_detection(f"custom ordering {p.value}", ext_o, marks, gen)
+        if not (launched(c_ins, fast, True, high)
+                and launched(c_ext, fast, False, high)
+                and launched(c_ord, fast, True, high)):
+            raise AssertionError(f"custom callables at {p.value} launched "
+                                 f"{c_ins}, {c_ext}, {c_ord}")
+        log("custom", shape=[4, 1080, 1920], n=N, tier=p.value,
+            insert_bit_equal=True, extract_max_gap_sigma=gap,
+            extract_min_self_sigma=det["min_self_sigma"],
+            ordering_min_share_common=share,
+            ordering_indices_equal=bool(torch.equal(a, b)),
+            ordering_min_self_sigma=det_o["min_self_sigma"],
+            launches_insert=c_ins, launches_extract=c_ext,
+            launches_ordering=c_ord)
+
+
+def phase_bench() -> None:
+    """The bench harness's configs, each once at its JAX defaults on the
+    card, each result on its own line with the wall seconds it took; the
+    corpus must detect every image's own mark as its top match, above
+    6 sigma."""
+    from spread_spectrum_watermarking_torch import bench
+
+    runs = [("bench_throughput", lambda: bench.run_bench(quiet=True)),
+            ("bench_latency", bench.run_latency_bench),
+            ("bench_cached_extract", bench.run_cached_extract_bench)]
+    runs += [(f"bench_sweep_{p}", lambda p=p: bench.run_similarity_sweep_bench(
+        precision=p)) for p in ("highest", "high", "default")]
+    runs.append(("bench_corpus", bench.run_corpus_bench))
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        res = fn()
+        log(name, wall_seconds=time.perf_counter() - t0, **res)
+        rates = [v for k, v in res.items() if k.endswith("_per_sec")]
+        if not rates or not all(np.isfinite(r) and r > 0 for r in rates):
+            raise AssertionError(f"{name}: rates {rates}")
+    if not (res["detection_rate_top1"] == 1.0
+            and res["min_own_mark_sigma"] > SIGMA):
+        raise AssertionError(f"the corpus bench missed marks: {res}")
 
 
 def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
@@ -1130,11 +1333,13 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
         **_stage_breakdown_highest(rgb, marks[0], cfg))
     del marked, ext, rgb
     torch.cuda.empty_cache()
+    rate = _harness_rate(48, "1080p", cfg.precision, 16)
     rand = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
     rates = _images_per_sec(rand, marks, cfg, runs=3)
-    log("highest_rate", shape=[48, 1080, 1920], n=N,
-        images_per_sec_median=statistics.median(rates), runs=rates)
+    log("highest_rate", shape=[48, 1080, 1920], n=N, **rate,
+        one_call_images_per_sec_median=statistics.median(rates),
+        one_call_runs=rates)
     log("highest_profile", shape=[48, 1080, 1920], n=N,
         **_device_profile(rand, marks, cfg))
 
@@ -1156,10 +1361,13 @@ def phase_4k() -> None:
         torch.cuda.synchronize()
         counts = _kernel_counts()
         det = _check_detection(f"4K {p.value}", ext, marks, gen)
+        del marked, ext
+        rate = _harness_rate(8, "4k", p, 32)
         rates = _images_per_sec(rgb, marks, cfg, runs=3)
         log("4k" if p is wm.Precision.DEFAULT else "4k_high",
-            shape=[8, 2160, 3840], n=N, launches=counts, **det,
-            images_per_sec_median=statistics.median(rates), runs=rates)
+            shape=[8, 2160, 3840], n=N, launches=counts, **det, **rate,
+            one_call_images_per_sec_median=statistics.median(rates),
+            one_call_runs=rates)
 
 
 def main() -> int:
@@ -1231,11 +1439,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fast_path(wm.Precision.HIGH, recs)
     torch.cuda.empty_cache()
+    for p in (wm.Precision.DEFAULT, wm.Precision.HIGH):
+        phase_fast_path(p, None, rank_version=1)
+        torch.cuda.empty_cache()
     phase_fast_options()
+    torch.cuda.empty_cache()
+    phase_custom()
     torch.cuda.empty_cache()
     phase_highest(k6a_rec, k6b_rec, k7_rec)
     torch.cuda.empty_cache()
     phase_4k()
+    torch.cuda.empty_cache()
+    phase_bench()
     log("done", seconds=time.perf_counter() - t0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,10 +4,13 @@ The port of ``spread_spectrum_watermarking_tpu`` (the JAX reference, which
 stays beside it). This package imports ``torch`` and numpy, never ``jax``.
 It covers the three precision tiers: the reference-exact
 ``Precision.HIGHEST`` (every config's default) and the fast ``HIGH`` and
-``DEFAULT`` tiers (rank generation 2): embed with the sparse or the full
-inverse, embed-and-verify, extract, the reader-cached rank/extract pair,
-the prepared base/derived pair, u8 or float images, and the
-Writer/Reader/Tester wrappers. Importing it builds and loads no kernel.
+``DEFAULT`` tiers (rank generations 1 and 2): embed with the sparse or the
+full inverse, embed-and-verify, extract, the reader-cached rank/extract
+pair, the prepared base/derived pair, u8 or float images, custom insert,
+extract and ordering callables, and the Writer/Reader/Tester wrappers;
+beside them the bench harness (:mod:`.bench`) and the host side
+(:mod:`.utils`: watermark storage, image I/O, the reference's seeded
+marks). Importing it builds and loads no kernel.
 """
 
 from .api import Reader, ReaderDerived, Similarity, Tester, Writer

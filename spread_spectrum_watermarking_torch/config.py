@@ -58,8 +58,8 @@ class Precision(str, enum.Enum):
     HIGHEST = "highest"
 
 
-#: Current fast-tier ranking generation (see the JAX package's config). The
-#: port implements generation 2 only.
+#: Current fast-tier ranking generation (see the JAX package's config).
+#: Generation 1 (``rank_version=1``) is the legacy stored format; both run.
 RANK_VERSION = 2
 
 
@@ -79,10 +79,11 @@ class WriteConfig:
     insertion: InsertExtract = InsertExtract()
     ordering: Ordering = Ordering.ENERGY
     precision: Precision = Precision.HIGHEST
-    # Custom insertion (indices, original, mark) -> new values. Not ported:
-    # the pipelines raise NotImplementedError when it is set.
+    # Custom insertion (indices, original, mark) -> new values, a torch
+    # callable.
     custom_insert: Optional[Callable] = None
-    # Custom ranking metric (flat_indices, values) -> metric. Not ported.
+    # Custom ranking metric (flat_indices, values) -> metric, a torch
+    # callable; overrides ``ordering``.
     custom_ordering: Optional[Callable] = None
     rank_version: int = RANK_VERSION
 
@@ -100,7 +101,7 @@ class ReadConfig:
     extraction: InsertExtract = InsertExtract()
     ordering: Ordering = Ordering.ENERGY
     precision: Precision = Precision.HIGHEST
-    # Custom extraction (indices, base, derived) -> mark. Not ported.
+    # Custom extraction (indices, base, derived) -> mark, a torch callable.
     custom_extract: Optional[Callable] = None
     custom_ordering: Optional[Callable] = None
     rank_version: int = RANK_VERSION

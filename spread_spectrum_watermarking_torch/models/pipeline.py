@@ -42,10 +42,16 @@ as XLA's FMA rounds it: kernel K7 (``..kernels.add_quantize``), quantized
 in the same pass, or in its f32 mode (``colorspace.add_luma_delta_f32``)
 with ``quantize=False``, as for the fast tiers' u8 float output.
 
-Not ported yet, and raising ``NotImplementedError`` rather than taking
-another path (ROADMAP.md): custom insert, extract and ordering callables;
-rank generation 1. No pipeline folds (``dct.dct2_2d(fold=True)``, kernel
+Rank generation 1 (``rank_version=1``) and the custom insert, extract and
+ordering callables (torch callables, with the JAX package's signatures)
+run through every entry point that the JAX package routes them through,
+on the same kernels. No pipeline folds (``dct.dct2_2d(fold=True)``, kernel
 K1f), as no JAX pipeline does.
+
+The stages carry the JAX pipeline's profiler scopes as
+``torch.profiler.record_function`` ranges: ``ssw.forward`` (transform and
+ranking of the base), ``ssw.rank`` (the selection) and ``ssw.inverse``
+(the inverse transform and the epilogue).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..config import Method, Precision, ReadConfig, WriteConfig
 from ..kernels.add_quantize import add_quantize
@@ -60,11 +67,6 @@ from ..kernels.dct2d_fused import inverse_scale
 from ..kernels.embed_epilogue import delta_plane, embed_epilogue
 from ..kernels.luma_pass import luma_pass
 from ..ops import colorspace, dct, modulation, ranking
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 6)")
 
 
 def _forward(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
@@ -106,9 +108,11 @@ def _rank_from_half(t: torch.Tensor, n: int, ordering, custom_metric,
                     ax: int, rank_version: int = 2
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Second pass + ranking from the half-transformed plane."""
-    return ranking.approx_top_indices(_second_pass(t, ax), n, ordering,
-                                      custom_metric=custom_metric,
-                                      version=rank_version)
+    plane = _second_pass(t, ax)
+    with record_function("ssw.rank"):
+        return ranking.approx_top_indices(plane, n, ordering,
+                                          custom_metric=custom_metric,
+                                          version=rank_version)
 
 
 def _rank_and_values_fast(rgb: torch.Tensor, n: int, ordering, precision,
@@ -142,14 +146,14 @@ def _broadcast_marks(marks: torch.Tensor, batch: int) -> torch.Tensor:
 def _modulated(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fast prologue and the modulation: ``(idx, original, new)``."""
-    if config.custom_insert is not None:
-        raise _not_ported("custom_insert")
-    idx, original = _rank_and_values_fast(
-        rgb, marks.shape[-1], config.ordering, config.precision,
-        config.custom_ordering, config.rank_version)
+    with record_function("ssw.forward"):
+        idx, original = _rank_and_values_fast(
+            rgb, marks.shape[-1], config.ordering, config.precision,
+            config.custom_ordering, config.rank_version)
     new_values = modulation.embed_marks(
         original, _broadcast_marks(marks, rgb.shape[0]),
-        config.insertion.method, config.insertion.alpha)
+        config.insertion.method, config.insertion.alpha,
+        custom_insert=config.custom_insert, indices=idx)
     return idx, original, new_values
 
 
@@ -161,12 +165,13 @@ def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig,
     and float output add the bf16 dY in f32 (the JAX package's XLA form)."""
     h, w = rgb.shape[-3], rgb.shape[-2]
     idx, original, new_values = _modulated(rgb, marks, config)
-    delta = new_values - original
-    if quantize and rgb.dtype == torch.uint8:
-        return (embed_epilogue(rgb.contiguous(), delta.to(torch.float32), idx),
-                idx, original)
-    out = colorspace.add_luma_delta_f32(
-        rgb, _sparse_idct_delta(delta, idx, h, w, Precision.DEFAULT))
+    with record_function("ssw.inverse"):
+        delta = new_values - original
+        if quantize and rgb.dtype == torch.uint8:
+            return (embed_epilogue(rgb.contiguous(), delta.to(torch.float32),
+                                   idx), idx, original)
+        out = colorspace.add_luma_delta_f32(
+            rgb, _sparse_idct_delta(delta, idx, h, w, Precision.DEFAULT))
     return (colorspace.f32_to_u8(out) if quantize else out), idx, original
 
 
@@ -192,8 +197,9 @@ def _embed_fast_full_inverse(rgb: torch.Tensor, marks: torch.Tensor,
     coeffs = dct.dct2_2d(yiq[..., 0], precision=config.precision)
     flat = coeffs.reshape(b, h * w).scatter_add(-1, idx,
                                                 new_values - original)
-    y = dct.idct2_2d(flat.reshape(b, h, w), precision=config.precision)
-    out = _with_luma(yiq, y)
+    with record_function("ssw.inverse"):
+        y = dct.idct2_2d(flat.reshape(b, h, w), precision=config.precision)
+        out = _with_luma(yiq, y)
     return colorspace.f32_to_u8(out) if quantize else out
 
 
@@ -203,24 +209,26 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
     """The reference-exact embed: ``(marked, idx, original)``, the last two
     being the base's ranked indices and f32 coefficients there, exactly
     what a Reader re-derives from the same base."""
-    if config.custom_insert is not None:
-        raise _not_ported("custom_insert")
-    coeffs = _forward(rgb, Precision.HIGHEST)
+    with record_function("ssw.forward"):
+        coeffs = _forward(rgb, Precision.HIGHEST)
     b, h, w = coeffs.shape
-    idx = ranking.top_indices(coeffs, marks.shape[-1], config.ordering,
-                              custom_metric=config.custom_ordering)
+    with record_function("ssw.rank"):
+        idx = ranking.top_indices(coeffs, marks.shape[-1], config.ordering,
+                                  custom_metric=config.custom_ordering)
     flat = coeffs.reshape(b, h * w)
     original = torch.gather(flat, -1, idx)
     new_values = modulation.embed_marks(
         original, _broadcast_marks(marks, b), config.insertion.method,
-        config.insertion.alpha)
+        config.insertion.alpha, custom_insert=config.custom_insert,
+        indices=idx)
     if sparse_idct:
-        dy = _sparse_idct_delta(new_values - original, idx, h, w,
-                                Precision.HIGHEST)
-        if quantize and rgb.dtype == torch.uint8:
-            # Kernel K7 in its u8 mode: no f32 RGB reaches device memory.
-            return add_quantize(rgb.contiguous(), dy, True), idx, original
-        out = colorspace.add_luma_delta_f32(rgb, dy)
+        with record_function("ssw.inverse"):
+            dy = _sparse_idct_delta(new_values - original, idx, h, w,
+                                    Precision.HIGHEST)
+            if quantize and rgb.dtype == torch.uint8:
+                # Kernel K7 in its u8 mode: no f32 RGB reaches device memory.
+                return add_quantize(rgb.contiguous(), dy, True), idx, original
+            out = colorspace.add_luma_delta_f32(rgb, dy)
     else:
         # The reference's Writer::result: the full inverse of the changed
         # plane, with the base's I and Q.
@@ -243,10 +251,10 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
     on ``luma(derived) - luma(base)`` (K1's pair mode from the exact integer
     difference for u8 pairs; otherwise the difference of the f32 lumas and
     a plain bf16 pass), and the second pass only at the n indices (in full,
-    then gathered, with ``sparse_second=False``).
+    then gathered, with ``sparse_second=False``). A ``custom_extract``
+    sees ``(idx, base_vals, base_vals + num)``, as in the JAX package: the
+    derived values rebuilt from the base's estimates and the delta.
     """
-    if config.custom_extract is not None:
-        raise _not_ported("custom_extract")
     if base.shape != derived.shape:
         raise ValueError(f"base {tuple(base.shape)} and derived "
                          f"{tuple(derived.shape)} differ in shape")
@@ -265,6 +273,8 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
         other = -1 if ax == -2 else -2
         dplane = dct.dct2_pass(td, axis=other, precision=Precision.DEFAULT)
         num = torch.gather(dplane.reshape(*dplane.shape[:-2], h * w), -1, idx)
+    if config.custom_extract is not None:
+        return config.custom_extract(idx, base_vals, base_vals + num)
     method, alpha = config.extraction.method, config.extraction.alpha
     if method == Method.OPTION1:  # (d - b) / alpha
         return num / alpha
@@ -282,10 +292,11 @@ def _read_config(config: WriteConfig) -> ReadConfig:
                       rank_version=config.rank_version)
 
 
-def _extract_values(config: ReadConfig, base_vals: torch.Tensor,
+def _extract_values(config: ReadConfig, idx: torch.Tensor,
+                    base_vals: torch.Tensor,
                     derived_vals: torch.Tensor) -> torch.Tensor:
     if config.custom_extract is not None:
-        raise _not_ported("custom_extract")
+        return config.custom_extract(idx, base_vals, derived_vals)
     return modulation.extract_values(config.extraction.method,
                                      config.extraction.alpha, base_vals,
                                      derived_vals)
@@ -340,7 +351,7 @@ def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
         marked, idx, base_vals = _embed_highest(rgb, marks, config, quantize,
                                                 True)
         derived_vals = dct.dct2_coeffs_at(colorspace.luma(marked), idx)
-        ext = _extract_values(rconfig, base_vals, derived_vals)
+        ext = _extract_values(rconfig, idx, base_vals, derived_vals)
     else:
         marked, idx, original = _embed_fast(rgb, marks, config, quantize)
         ext = _extract_fast_tail(rgb, marked, idx, original, rconfig)
@@ -385,7 +396,7 @@ def extract_prepared(base_flat: torch.Tensor, idx: torch.Tensor,
     the inverse equation (reference ``Reader::extract_watermark``,
     src/algorithm.rs:543-562). Meaningful at HIGHEST, where both planes
     are f32-exact."""
-    return _extract_values(config, torch.gather(base_flat, -1, idx),
+    return _extract_values(config, idx, torch.gather(base_flat, -1, idx),
                            torch.gather(derived_flat, -1, idx))
 
 
@@ -439,17 +450,18 @@ def _extract_fused(base: torch.Tensor, derived: torch.Tensor, n: int,
     image's coefficients at the n indices only (HIGHEST), or the fast
     tiers' delta-exact read."""
     if config.precision is not Precision.HIGHEST:
-        idx, base_vals = _rank_and_values_fast(
-            base, n, config.ordering, config.precision,
-            config.custom_ordering, config.rank_version)
-        return _extract_fast_tail(base, derived, idx, base_vals, config,
-                                  sparse_second)
+        with record_function("ssw.forward"):
+            idx, base_vals = _rank_and_values_fast(
+                base, n, config.ordering, config.precision,
+                config.custom_ordering, config.rank_version)
+            return _extract_fast_tail(base, derived, idx, base_vals, config,
+                                      sparse_second)
     coeffs = _forward(base, config.precision)
     idx = ranking.top_indices(coeffs, n, config.ordering,
                               custom_metric=config.custom_ordering)
     base_vals = torch.gather(coeffs.reshape(coeffs.shape[0], -1), -1, idx)
     derived_vals = dct.dct2_coeffs_at(colorspace.luma(derived), idx)
-    return _extract_values(config, base_vals, derived_vals)
+    return _extract_values(config, idx, base_vals, derived_vals)
 
 
 def extract(base: torch.Tensor, derived: torch.Tensor, n: int,

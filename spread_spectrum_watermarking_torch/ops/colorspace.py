@@ -200,3 +200,16 @@ def add_luma_delta_u8(rgb_u8: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     df = (dy.to(torch.float32) * 255.0)[..., None]
     x = rgb_u8.to(torch.float32)
     return torch.clamp(torch.floor((x + df) + 0.5), 0.0, 255.0).to(torch.uint8)
+
+
+def np_f32_to_u8(rgb_f32: np.ndarray) -> np.ndarray:
+    """Host-side (numpy) version of :func:`f32_to_u8` for IO paths: the JAX
+    package's ``np_f32_to_u8``, numpy's arithmetic, not XLA's."""
+    x = np.clip(rgb_f32, 0.0, 1.0) * 255.0
+    return np.floor(x + 0.5).astype(np.uint8)
+
+
+def np_u8_to_f32(rgb_u8: np.ndarray) -> np.ndarray:
+    """Host-side (numpy) version of :func:`u8_to_f32` for IO paths: the JAX
+    package's ``np_u8_to_f32`` (a true division by 255, as numpy does it)."""
+    return rgb_u8.astype(np.float32) / 255.0

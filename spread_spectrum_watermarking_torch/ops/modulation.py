@@ -38,16 +38,31 @@ def extract_values(method: Method, alpha: float, base: torch.Tensor,
 
 
 def embed_marks(original: torch.Tensor, marks: torch.Tensor, method: Method,
-                alpha: float) -> torch.Tensor:
+                alpha: float, custom_insert=None,
+                indices: torch.Tensor | None = None) -> torch.Tensor:
     """New (..., n) values from the gathered (..., n) ``original`` and
-    ``marks`` of shape (..., n) (one mark) or (..., M, n) (M marks)."""
+    ``marks`` of shape (..., n) (one mark) or (..., M, n) (M marks).
+
+    ``custom_insert(indices, original, mark)``, a torch callable, replaces
+    the method's equation; like the JAX package's (which maps it over the
+    marks), it is called once a mark with (..., n) operands, and several
+    marks add their deltas against ``original``.
+    """
+    def f(orig, w):
+        if custom_insert is not None:
+            return custom_insert(indices, orig, w)
+        return insert_values(method, alpha, orig, w)
+
     if marks.ndim == original.ndim:
-        return insert_values(method, alpha, original, marks)
+        return f(original, marks)
     if marks.shape[-2] == 1:
-        return insert_values(method, alpha, original, marks[..., 0, :])
-    deltas = insert_values(method, alpha, original[..., None, :],
-                           marks) - original[..., None, :]
-    return original + deltas.sum(dim=-2)
+        return f(original, marks[..., 0, :])
+    if custom_insert is None:
+        new = insert_values(method, alpha, original[..., None, :], marks)
+    else:
+        new = torch.stack([f(original, marks[..., m, :])
+                           for m in range(marks.shape[-2])], dim=-2)
+    return original + (new - original[..., None, :]).sum(dim=-2)
 
 
 def similarity(extracted: torch.Tensor, candidates: torch.Tensor,

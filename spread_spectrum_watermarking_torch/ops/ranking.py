@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``ops/ranking.py``: :func:`top_indices`, the
 exact selection of the ``HIGHEST`` tier (equal to JAX's, index for index),
-and ``approx_top_indices`` at ``version=2``, the fast tier's.
+and ``approx_top_indices``, the fast tiers', at both rank generations and
+with a custom metric.
 
 In ``approx_top_indices`` the keys are built bit for bit as in JAX; what
 differs is the selection. JAX takes ``lax.approx_max_k``, whose choice among equal keys at
@@ -66,6 +67,46 @@ def _top_by_key(key: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
     return torch.topk(comp, n, dim=-1, sorted=True).indices
 
 
+def _bf16_key(x: torch.Tensor) -> torch.Tensor:
+    """bf16 -> int32 in the value's order; -0.0 and +0.0 map to one key."""
+    bits = _bits16(x.contiguous())
+    mag = bits & 0x7FFF
+    return torch.where(bits >= 0x8000, -mag, mag)
+
+
+_DC_KEY = -0x8001  # below every bf16 key, -inf's included
+
+
+def _metric_at(vals: torch.Tensor, idx: torch.Tensor, h: int, w: int,
+               ordering: Ordering) -> torch.Tensor:
+    """The f32 ranking metric of gathered values at flat ``idx`` (JAX
+    ``_metric_from_values``; the caller masks DC)."""
+    if ordering == Ordering.ENERGY:
+        return vals * vals
+    scaled = vals * _flat_scale(h, w, vals.device)[idx]
+    if ordering == Ordering.ENERGY_ORTHOGONAL:
+        return scaled * scaled
+    if ordering == Ordering.LEGACY:
+        return scaled
+    raise ValueError(f"unknown ordering {ordering}")
+
+
+def _select_and_resort(keys: torch.Tensor, flat_c: torch.Tensor, n: int,
+                       metric_at) -> tuple[torch.Tensor, torch.Tensor]:
+    """Generation 1's and the custom metric's selection: the n largest bf16
+    ``keys`` (DC forced last), one gather of their values as f32, then the
+    re-sort by (f32 metric desc, index asc), DC last, with -0.0 and +0.0
+    equal as in ``lax.sort``: ``(indices, values)``."""
+    keys[..., 0] = _DC_KEY
+    pos = torch.arange(keys.shape[-1], device=keys.device, dtype=torch.int64)
+    idx = _top_by_key(keys, pos, n)
+    cand_c = torch.gather(flat_c, -1, idx).to(torch.float32)
+    cand_m = torch.where(idx == 0, -float("inf"),
+                         metric_at(idx, cand_c).to(torch.float32))
+    order = _top_by_key(_zeros_tie(_f32_key(cand_m.contiguous())), idx, n)
+    return torch.gather(idx, -1, order), torch.gather(cand_c, -1, order)
+
+
 def approx_top_indices(
     coeffs: torch.Tensor,
     n: int,
@@ -73,25 +114,42 @@ def approx_top_indices(
     custom_metric=None,
     version: int = 2,
 ):
-    """Top-n of a bf16 plane (..., H, W): ``(indices, values)``.
+    """Top-n of a bf16 plane (..., H, W): ``(indices, values)``, int64 flat
+    indices in rank order and the f32 coefficient estimates there.
 
     The name is the JAX function's, so its counterpart can be found; the
-    selection here is exact (module docstring). Returns int64 flat indices
-    ordered by (LSB-masked key magnitude desc, index asc) and the f32
-    coefficient estimates rebuilt from the keys, 0.0 at DC.
+    selection here is exact (module docstring). ``version`` is the rank
+    generation, part of the stored format (JAX ``ranking.py``'s
+    COMPATIBILITY CONTRACT); any other raises ``ValueError`` as in JAX.
 
-    Keys (ENERGY / ENERGY_ORTHOGONAL): ``|scaled|`` in bf16 with the
-    coefficient's sign stored in the key's LSB; LEGACY: the signed scaled
-    value itself. DC is forced below every other key.
+    Generation 2 (built-in orderings): keys of ``|scaled|`` in bf16 with
+    the coefficient's sign stored in the key's LSB (ENERGY,
+    ENERGY_ORTHOGONAL), or the signed scaled value itself (LEGACY); DC is
+    forced below every other key. Indices are ordered by (LSB-masked key
+    desc, index asc) and the estimates rebuilt from the keys, 0.0 at DC.
+
+    Generation 1: keys are the bf16-rounded ``ranking_metric`` of the plane
+    (the f32 scale product and square rounded once, as XLA rounds the
+    jitted chain), then one gather of the n values and a re-sort by the f32
+    metric of those values. A ``custom_metric(flat_indices, values)`` (a
+    torch callable; it sees int64 positions and the bf16 plane, then the
+    gathered f32 values) takes the generation-1 route at either version.
     """
-    if version != 2 or custom_metric is not None:
-        raise NotImplementedError(
-            "only rank generation 2 with a built-in ordering is ported "
-            "(ROADMAP.md, Queue 1 item 4)")
+    if version not in (1, 2):
+        raise ValueError(f"unknown fast-tier rank_version {version}")
     if coeffs.dtype != torch.bfloat16:
         raise TypeError("the fast-tier ranking takes a bf16 plane")
     h, w = coeffs.shape[-2], coeffs.shape[-1]
     flat_c = coeffs.reshape(*coeffs.shape[:-2], h * w)
+    if custom_metric is not None:
+        pos = torch.arange(h * w, device=coeffs.device, dtype=torch.int64)
+        keys = _bf16_key(custom_metric(pos, flat_c).to(torch.bfloat16))
+        return _select_and_resort(keys, flat_c, n, custom_metric)
+    if version == 1:
+        m = ranking_metric(coeffs.to(torch.float32), ordering)
+        keys = _bf16_key(m.to(torch.bfloat16).reshape(flat_c.shape))
+        return _select_and_resort(
+            keys, flat_c, n, lambda i, v: _metric_at(v, i, h, w, ordering))
     if ordering == Ordering.ENERGY:
         scaled = flat_c
     else:
@@ -99,16 +157,13 @@ def approx_top_indices(
         scaled = flat_c * scale
 
     if ordering == Ordering.LEGACY:
-        bits = _bits16(scaled)
-        mag = bits & 0x7FFF
-        # Signed bf16 -> int order-preserving; -0.0 and +0.0 stay equal.
-        key = torch.where(bits >= 0x8000, -mag, mag)
+        key = _bf16_key(scaled)
     elif ordering in (Ordering.ENERGY, Ordering.ENERGY_ORTHOGONAL):
         sgn = torch.signbit(scaled).to(torch.int32)
         key = (_bits16(torch.abs(scaled)) & 0xFFFE) | sgn
     else:
         raise ValueError(f"unknown ordering {ordering}")
-    key[..., 0] = -0x8001  # DC: below every key, -inf's included
+    key[..., 0] = _DC_KEY
     pos = torch.arange(h * w, device=key.device, dtype=torch.int64)
     idx = _top_by_key(key, pos, n)
     kv = torch.gather(key, -1, idx)
@@ -122,7 +177,7 @@ def approx_top_indices(
         order_key = mag_bits
         mag = _from_bits16(mag_bits)
         sval = torch.where((kv & 1) != 0, -mag, mag)
-    order_key = torch.where(idx == 0, -0x8001, order_key)
+    order_key = torch.where(idx == 0, _DC_KEY, order_key)
     # DC's estimate is 0.0, not a value that poisons Option2/3 divisions.
     sval = torch.where(idx == 0, 0.0, sval)
     if ordering == Ordering.ENERGY:
@@ -210,15 +265,20 @@ def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
     only in how -0.0 meets +0.0, which LEGACY's signed metric can hold:
     ``lax.top_k`` ranks +0.0 first, the tiled path's final ``lax.sort``
     ranks them as equal; the port reproduces both.
+
+    A ``custom_metric(flat_indices, values)`` (a torch callable, given int64
+    positions and the plane's values) replaces the built-in metric; its
+    f32 result is selected the same way, DC excluded.
     """
-    if custom_metric is not None:
-        raise NotImplementedError(
-            "custom ranking metrics are not ported yet (ROADMAP.md, Queue 1 "
-            "item 4)")
     h, w = coeffs.shape[-2], coeffs.shape[-1]
     size = h * w
-    metric = ranking_metric(coeffs.to(torch.float32), ordering)
-    key = _f32_key(metric.reshape(*metric.shape[:-2], size))
+    lead = coeffs.shape[:-2]
+    if custom_metric is not None:
+        pos = torch.arange(size, device=coeffs.device, dtype=torch.int64)
+        metric = custom_metric(pos, coeffs.reshape(*lead, size))
+    else:
+        metric = ranking_metric(coeffs.to(torch.float32), ordering)
+    key = _f32_key(metric.to(torch.float32).reshape(*lead, size).contiguous())
     key[..., 0] = _NEG_INF_KEY  # DC, as the JAX package's -inf
     tile = 32
     if exact_only or size < 4 * n * tile:

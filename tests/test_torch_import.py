@@ -12,6 +12,9 @@ _PROBE = """
 import sys
 import spread_spectrum_watermarking_torch
 import spread_spectrum_watermarking_torch.interop
+import spread_spectrum_watermarking_torch.bench
+from spread_spectrum_watermarking_torch.utils import (debug, image_io,
+                                                      rng_compat, storage)
 from spread_spectrum_watermarking_torch.kernels import _build
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'spread_spectrum_watermarking_tpu')]

@@ -120,28 +120,53 @@ def test_other_methods_round_trip(method):
 
 
 def test_unported_tiers_and_options_raise():
-    # Every tier and option of the JAX pipelines is ported
-    # (tests/test_torch_pipeline_high.py, _highest.py) but custom callables
-    # and rank generation 1, which raise naming ROADMAP at both fast tiers.
+    # Every tier and option of the JAX pipelines is ported; this held the
+    # last ones, custom callables and rank generation 1, to raising. Now
+    # each runs at both fast tiers, against JAX with the same callables.
     rgb, marks = _inputs(37, 59)
     base, m = torch.from_numpy(rgb), torch.from_numpy(marks)
-    for p in (tw.Precision.DEFAULT, tw.Precision.HIGH):
-        cases = [
-            (tw.embed, tw.WriteConfig(precision=p,
-                                      custom_ordering=lambda i, v: v)),
-            (tw.embed, tw.WriteConfig(precision=p,
-                                      custom_insert=lambda i, o, k: o)),
-            (tw.embed, tw.WriteConfig(precision=p, rank_version=1)),
-            (tw.embed_verified, tw.WriteConfig(precision=p, rank_version=1)),
-        ]
-        for fn, cfg in cases:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fn(base, m, cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tw.extract(base, base, N, tw.ReadConfig(
-                precision=p, custom_extract=lambda i, b, d: d))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tw.rank_base(base, N, tw.ReadConfig(precision=p, rank_version=1))
+    jbase, jm_ = jnp.asarray(rgb), jnp.asarray(marks)
+    for p in ("default", "high"):
+        jpr, tp = jcfg.Precision(p), tw.Precision(p)
+        # A signed metric (LEGACY-like) as the custom ordering.
+        jw = jcfg.WriteConfig(precision=jpr, custom_ordering=lambda i, v: v)
+        tcw = tw.WriteConfig(precision=tp, custom_ordering=lambda i, v: v)
+        _, je = jp.embed_verified(jbase, jm_, jw)
+        _, te = tw.embed_verified(base, m, tcw)
+        j_own, _ = _sims(je, marks)
+        t_own, rand = _sims(te, marks)
+        assert np.all(np.abs(j_own - t_own) <= 0.1)
+        assert np.all(t_own > 6.0) and rand < 4.0
+        # A custom insert that changes nothing leaves the u8 image as is.
+        out = tw.embed(base, m, tw.WriteConfig(
+            precision=tp, custom_insert=lambda i, o, k: o))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jp.embed(
+            jbase, jm_, jcfg.WriteConfig(precision=jpr,
+                                         custom_insert=lambda i, o, k: o))))
+        np.testing.assert_array_equal(out.numpy(), rgb)
+        # Rank generation 1: the reader cache, embed and embed_verified.
+        jw1 = jcfg.WriteConfig(precision=jpr, rank_version=1)
+        jr1 = jcfg.ReadConfig(precision=jpr, rank_version=1)
+        tw1, tr1 = (interop.config_from_reference(c) for c in (jw1, jr1))
+        ji, _ = jp.rank_base(jbase, N, jr1)
+        ti, _ = tw.rank_base(base, N, tr1)
+        assert all(len(np.intersect1d(a, b)) / N >= 0.99
+                   for a, b in zip(np.asarray(ji), ti.numpy()))
+        marked = tw.embed(base, m, tw1)
+        tm, te = tw.embed_verified(base, m, tw1)
+        torch.testing.assert_close(marked, tm, rtol=0, atol=0)
+        _, je = jp.embed_verified(jbase, jm_, jw1)
+        assert np.all(np.abs(_sims(je, marks)[0] - _sims(te, marks)[0]) <= 0.1)
+        # A custom extract: the Option2 inverse written out, on both.
+        inv = lambda i, b, d: (d - b) / (b * 0.1)  # noqa: E731
+        je = jp.extract(jbase, jnp.asarray(tm.numpy()), N, jcfg.ReadConfig(
+            precision=jpr, rank_version=1, custom_extract=inv))
+        te = tw.extract(base, tm, N, tw.ReadConfig(
+            precision=tp, rank_version=1, custom_extract=inv))
+        j_own, _ = _sims(je, marks)
+        t_own, rand = _sims(te, marks)
+        assert np.all(np.abs(j_own - t_own) <= 0.1)
+        assert np.all(t_own > 6.0) and rand < 4.0
 
 
 def test_interop_maps_configs_and_state():

@@ -193,16 +193,35 @@ def test_extract_raises_where_the_reference_panics():
 
 
 def test_unported_options_raise_at_highest():
+    # The custom callables run at HIGHEST, against JAX with the same
+    # callables; embed_verified still refuses a custom insert, as in JAX.
     rgb, marks = _inputs(37, 59, seed=8)
     base, m = torch.from_numpy(rgb), torch.from_numpy(marks)
-    with pytest.raises(NotImplementedError):
-        tw.embed(base, m, tw.WriteConfig(custom_ordering=lambda i, v: v))
-    with pytest.raises(NotImplementedError):
-        tw.embed(base, m, tw.WriteConfig(custom_insert=lambda i, o, k: o))
+    jbase, jm_ = jnp.asarray(rgb), jnp.asarray(marks)
+    metric = lambda i, v: v  # noqa: E731  (signed, as LEGACY)
+    np.testing.assert_array_equal(
+        tw.prepare_base(base, N, tw.ReadConfig(custom_ordering=metric))[1],
+        np.asarray(jp.prepare_base(jbase, N, jcfg.ReadConfig(
+            custom_ordering=metric))[1]))
+    tmk = tw.embed(base, m, tw.WriteConfig(custom_ordering=metric))
+    jmk = jp.embed(jbase, jm_, jcfg.WriteConfig(custom_ordering=metric))
+    assert _step(jmk, tmk) <= 1
+    _assert_detects_like(
+        tw.extract(base, tmk, N, tw.ReadConfig(custom_ordering=metric)),
+        jp.extract(jbase, jmk, N, jcfg.ReadConfig(custom_ordering=metric)),
+        marks)
+    ins = lambda i, o, k: o * (1.0 + 0.1 * k)  # noqa: E731  (Option2)
+    tmk = tw.embed(base, m, tw.WriteConfig(custom_insert=ins))
+    assert _step(jp.embed(jbase, jm_, jcfg.WriteConfig(custom_insert=ins)),
+                 tmk) <= 1
+    torch.testing.assert_close(tmk, tw.embed(base, m), rtol=0, atol=0)
     with pytest.raises(ValueError):
-        tw.embed_verified(base, m, tw.WriteConfig(custom_insert=lambda i, o, k: o))
-    with pytest.raises(NotImplementedError):
-        tw.extract(base, base, N,
-                   tw.ReadConfig(custom_extract=lambda i, b, d: d))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.prepare_base(base, N, tw.ReadConfig(custom_ordering=lambda i, v: v))
+        tw.embed_verified(base, m, tw.WriteConfig(custom_insert=ins))
+    inv = lambda i, b, d: (d - b) / (b * 0.1)  # noqa: E731  (its inverse)
+    for sparse in (True, False):
+        _assert_detects_like(
+            tw.extract(base, tmk, N, tw.ReadConfig(custom_extract=inv),
+                       sparse_derived=sparse),
+            jp.extract(jbase, jnp.asarray(tmk.numpy()), N,
+                       jcfg.ReadConfig(custom_extract=inv),
+                       sparse_derived=sparse), marks)

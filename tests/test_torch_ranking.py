@@ -96,9 +96,22 @@ def test_signs_ride_in_the_key():
 
 
 def test_other_generations_raise():
-    plane = torch.ones((1, 4, 4), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        tr.approx_top_indices(plane, 2, Ordering.ENERGY, version=1)
-    with pytest.raises(NotImplementedError):
-        tr.approx_top_indices(plane, 2, Ordering.ENERGY,
-                              custom_metric=lambda i, v: v)
+    # Generation 1 and a custom metric run, as in JAX on the same plane;
+    # an unknown generation raises JAX's ValueError.
+    plane = _plane(37, 59)
+    pf = np.array(plane.astype(jnp.float32))
+    tplane = torch.from_numpy(pf).to(torch.bfloat16)
+    metric = lambda i, v: v * v  # noqa: E731
+    for kw in ({"version": 1}, {"custom_metric": metric}):
+        ji, jv = jr.approx_top_indices(plane, N, JOrdering.ENERGY, **kw)
+        ti, tv = tr.approx_top_indices(tplane, N, Ordering.ENERGY, **kw)
+        for b in range(2):
+            common = np.intersect1d(np.asarray(ji[b]), ti[b].numpy())
+            assert len(common) / N >= 0.99
+            jmap = dict(zip(np.asarray(ji[b]).tolist(),
+                            np.asarray(jv[b]).tolist()))
+            tmap = dict(zip(ti[b].tolist(), tv[b].tolist()))
+            assert all(jmap[i] == tmap[i] for i in common.tolist())
+    for version in (0, 3):
+        with pytest.raises(ValueError, match="rank_version"):
+            tr.approx_top_indices(tplane, 2, Ordering.ENERGY, version=version)

@@ -22,7 +22,7 @@ from spread_spectrum_watermarking_torch.config import Ordering
 from spread_spectrum_watermarking_torch.ops import ranking as tr
 
 ORDERINGS = ["energy", "energy-orthogonal", "legacy"]
-_jax_top = jax.jit(jr.top_indices, static_argnums=(1, 2, 3))
+_jax_top = jax.jit(jr.top_indices, static_argnums=(1, 2, 3, 4))
 
 
 def _both(plane, n, ordering, exact_only=False):
@@ -93,9 +93,17 @@ def test_dc_and_custom_metric():
     assert t[0, -1].item() == 0 and t[0, :5].tolist() == [1, 2, 3, 4, 5]
     j, t = _both(plane, 64, "energy")
     np.testing.assert_array_equal(t, j)
-    with pytest.raises(NotImplementedError):
-        tr.top_indices(torch.from_numpy(plane), 4, Ordering.ENERGY,
-                       custom_metric=lambda i, v: v)
+    # A custom metric (signed, position-dependent), index for index with
+    # JAX on both of its branches.
+    planted = _planted(4, 64, 96, 0.5)
+    metric = lambda i, v: v * (1 + i % 3)  # noqa: E731
+    for n, exact_only in ((20, False), (20, True), (4, False)):
+        j = _jax_top(jnp.asarray(planted), n, JOrdering.ENERGY, exact_only,
+                     metric)
+        t = tr.top_indices(torch.from_numpy(planted), n, Ordering.ENERGY,
+                           exact_only, custom_metric=metric)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        assert not np.any(t.numpy() == 0)
 
 
 @pytest.mark.parametrize("ordering", ORDERINGS)
