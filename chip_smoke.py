@@ -45,9 +45,8 @@ Phases, one line of output each, any failure exits non-zero:
    CPU run of the same code on a small input, a stage breakdown,
    images/s from the port's bench harness (``bench.run_verified_bench``:
    random u8, each call marking the last call's output, the median of
-   three timed chains), beside the rate of one timed call on the same
-   kind of input (the yardstick before the harness), and the device's idle
-   share under ``torch.profiler``;
+   three timed chains), and the device's idle share under
+   ``torch.profiler``;
 6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, its pair
    mode and K4 launched in the one call, K6 not;
 6b. rank generation 1 (``rank_version=1``), the same checks at DEFAULT and
@@ -69,16 +68,32 @@ Phases, one line of output each, any failure exits non-zero:
    the CPU agreement check, Writer/Reader/Tester on one image, a stage
    breakdown, images/s and the idle share;
 9. 4K, batch 8: one ``embed_verified`` on 1/f textures at DEFAULT and one
-   at HIGH, and images/s of each (the harness, beside the one-call rate);
+   at HIGH, and images/s of each from the harness;
 10. the bench harness's configs at their JAX defaults on the card: the
    separate-calls throughput (HIGH), the batch-1 latency, the
    reader-cached extraction (DEFAULT), the 1024 x 10 000 similarity sweep
    at each precision and the 1024-image corpus (HIGH, chunk 64; every
-   image's own mark its top match, above 6 sigma).
+   image's own mark its top match, above 6 sigma);
+11. the command line (``cli.main``, in this process) at 1080p: ``batch``
+   over 48 1/f textures saved as JPEG q 95, at HIGHEST (the CLI's default;
+   K6a launched, K7 once for the one shape) and at DEFAULT (K1 and K4),
+   48 PNG/JSON pairs each; ``test`` on four outputs of each tier (its own
+   mark matches, a foreign one does not); ``detect`` at each tier on one
+   base and 50 derived paths of its shape (its marked PNG and a JPEG q 90
+   re-encode above 6 sigma, the base itself 0.0, the other 47 outputs
+   below 6 sigma), its records equal to a run in chunks of one within
+   1e-5 sigma; and one ``python -m spread_spectrum_watermarking_torch.cli
+   watermark -p`` subprocess that must exceed 6 sigma. It prints the wall
+   images/s of ``batch`` and ``detect`` (decode and encode included:
+   recorded, not gated) beside the card's name and power limit, each
+   host and device piece of them timed alone (``cli_breakdown``), and a
+   ``native`` line: the native RNG's build, bit-equal to its pure-Python
+   version at seed 1, length 1000, and the codec's build or why it was
+   skipped (this host's decoder is then PIL).
 
 The device line also reports, for information only, which of PIL, the
 libjpeg and libpng headers, ``Python.h`` and ``g++`` the machine has (the
-native codec's build needs them).
+native builds need them).
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, its bound (the larger of its operations over the
@@ -91,7 +106,6 @@ from __future__ import annotations
 
 import functools
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -226,15 +240,20 @@ def _host_tools() -> dict:
                               "-I" + sysconfig.get_paths()["include"])}
 
 
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     from spread_spectrum_watermarking_torch.kernels import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     _build.library()
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
@@ -836,25 +855,6 @@ def _harness_rate(batch: int, size: str, precision, iters: int,
             "timer": "bench._timed_chain, CUDA events, median of 3 chains"}
 
 
-def _images_per_sec(rgb, marks, cfg, runs: int) -> list[float]:
-    """The yardstick before the harness: one warm-up, then ``runs`` timed
-    calls, each embedding into the last call's output."""
-    import torch
-
-    imgs = _chained_step(rgb.clone(), marks, cfg)
-    torch.cuda.synchronize()
-    rates = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        imgs = _chained_step(imgs, marks, cfg)
-        end.record()
-        torch.cuda.synchronize()
-        rates.append(rgb.shape[0] / (start.elapsed_time(end) / 1e3))
-    return rates
-
-
 def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
     """torch.profiler over ``calls`` chained calls after a warm-up: the
     window on the host clock, the device's kernel time in it, the idle share
@@ -1054,11 +1054,8 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
     rate = _harness_rate(48, "1080p", precision, iters, rank_version)
     rand = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
-    rates = _images_per_sec(rand, marks, cfg, runs=5)
     log(pre + ("high_rate" if high else "main_path_rate"),
-        shape=[48, 1080, 1920], n=N, **rate,
-        one_call_images_per_sec_median=statistics.median(rates),
-        one_call_runs=rates)
+        shape=[48, 1080, 1920], n=N, **rate)
     log(f"{tag}profile", shape=[48, 1080, 1920], n=N,
         **_device_profile(rand, marks, cfg))
 
@@ -1336,10 +1333,7 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
     rate = _harness_rate(48, "1080p", cfg.precision, 16)
     rand = torch.randint(0, 256, (48, 1080, 1920, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
-    rates = _images_per_sec(rand, marks, cfg, runs=3)
-    log("highest_rate", shape=[48, 1080, 1920], n=N, **rate,
-        one_call_images_per_sec_median=statistics.median(rates),
-        one_call_runs=rates)
+    log("highest_rate", shape=[48, 1080, 1920], n=N, **rate)
     log("highest_profile", shape=[48, 1080, 1920], n=N,
         **_device_profile(rand, marks, cfg))
 
@@ -1363,11 +1357,226 @@ def phase_4k() -> None:
         det = _check_detection(f"4K {p.value}", ext, marks, gen)
         del marked, ext
         rate = _harness_rate(8, "4k", p, 32)
-        rates = _images_per_sec(rgb, marks, cfg, runs=3)
         log("4k" if p is wm.Precision.DEFAULT else "4k_high",
-            shape=[8, 2160, 3840], n=N, launches=counts, **det, **rate,
-            one_call_images_per_sec_median=statistics.median(rates),
-            one_call_runs=rates)
+            shape=[8, 2160, 3840], n=N, launches=counts, **det, **rate)
+
+
+def _cli(argv: list) -> tuple[int, str]:
+    """``cli.main(argv)`` in this process: its exit code and its stdout."""
+    import contextlib
+    import io
+
+    from spread_spectrum_watermarking_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue()
+
+
+def _jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _cli_detect(tmp, tier: str, outs, src) -> None:
+    """``detect`` on base t00 at ``tier``: 50 derived paths in chunks of 32,
+    then again in chunks of one, which must give the same records."""
+    import torch
+    from PIL import Image
+
+    from spread_spectrum_watermarking_torch import cli
+
+    own = outs / "t00_wm.png"
+    q90 = tmp / f"t00_{tier}_q90.jpg"
+    Image.open(own).save(q90, quality=90)
+    derived = [own, q90, src / "t00.jpg"] + sorted(
+        p for p in outs.glob("*_wm.png") if p != own)
+    runs = {}
+    for chunk in (cli.DETECT_CHUNK, 1):
+        saved, cli.DETECT_CHUNK = cli.DETECT_CHUNK, chunk
+        jl = tmp / f"detect_{tier}_{chunk}.jsonl"
+        try:
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            rc, _ = _cli(["detect", src / "t00.jpg", outs / "t00_wm.json",
+                          "--derived", *derived, "--jsonl", jl])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cli.DETECT_CHUNK = saved
+        runs[chunk] = (rc, _jsonl(jl), wall, _kernel_counts())
+    rc, rows, wall, counts = runs[cli.DETECT_CHUNK]
+    sims = [r.get("similarity") for r in rows]
+    if rc != 0 or len(rows) != len(derived) or None in sims:
+        raise AssertionError(f"detect at {tier}: rc {rc}, {len(rows)} rows")
+    if not (sims[0] > SIGMA and sims[1] > SIGMA and sims[2] == 0.0
+            and max(sims[3:]) < SIGMA):
+        raise AssertionError(f"detect at {tier} misread: {sims[:3]}, "
+                             f"others up to {max(sims[3:])}")
+    single = runs[1][1]
+    gap = max(abs(a["similarity"] - b["similarity"])
+              for a, b in zip(rows, single))
+    same = [{k: v for k, v in r.items() if k != "similarity"} for r in rows]
+    if same != [{k: v for k, v in r.items() if k != "similarity"}
+                for r in single] or not gap <= 1e-5:
+        raise AssertionError(f"detect at {tier}: chunks of one differ "
+                             f"(similarity gap {gap})")
+    fast = counts["k1"] > 0 and counts["k6a"] == 0
+    if not (counts["k6a"] > 0 if tier == "highest" else fast):
+        raise AssertionError(f"detect at {tier} launched {counts}")
+    log(f"cli_detect_{tier}", card=_card(), derived=len(derived),
+        chunk=cli.DETECT_CHUNK, launches=counts, own_sigma=sims[0],
+        q90_sigma=sims[1], base_sigma=sims[2],
+        max_other_sigma=max(sims[3:]), chunks_of_one_max_gap_sigma=gap,
+        wall_seconds=wall, images_per_sec=len(derived) / wall,
+        chunks_of_one_wall_seconds=runs[1][2],
+        chunks_of_one_images_per_sec=len(derived) / runs[1][2])
+
+
+def _cli_breakdown(src, outs) -> dict:
+    """Where the CLI's wall time goes at 1080p: each host and device piece
+    of ``batch`` (48 JPEGs decoded, copied in, embedded, copied out, PNGs
+    encoded on threads) and of ``detect`` (48 PNGs decoded, one Reader
+    read of all 48 against the cached base, its copies in and out
+    included) timed alone on the same files, host clock around a CUDA
+    sync, the device pieces after a warm-up call."""
+    import pathlib
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch.utils import image_io
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    secs = {}
+    jpegs = sorted(src.glob("*.jpg"))
+    imgs, secs["decode_jpeg"] = timed(lambda: image_io.load_batch_u8(jpegs))
+    host = np.stack(imgs)
+    rgb, secs["copy_in"] = timed(lambda: torch.from_numpy(host).cuda())
+    marks = torch.randn((len(imgs), 1, N),
+                        generator=torch.Generator().manual_seed(9)).cuda()
+    pngs = sorted(outs["highest"].glob("*_wm.png"))
+    dimgs, secs["decode_png"] = timed(lambda: image_io.load_batch_u8(pngs))
+    dstack = np.stack(dimgs)
+    for tier in ("highest", "default"):
+        prec = wm.Precision(tier)
+        cfg, rcfg = wm.WriteConfig(precision=prec), wm.ReadConfig(
+            precision=prec)
+        wm.embed(rgb, marks, cfg)
+        marked, secs[f"embed_{tier}"] = timed(lambda: wm.embed(rgb, marks,
+                                                               cfg))
+        reader = wm.Reader.base(imgs[0], rcfg)
+        reader._extract_stack(dstack, N)  # ranks the base, warms up
+        _, secs[f"read_chunk_{tier}"] = timed(
+            lambda: reader._extract_stack(dstack, N))
+    back, secs["copy_out"] = timed(lambda: marked.cpu().numpy())
+    with tempfile.TemporaryDirectory() as d:
+        paths = [pathlib.Path(d) / f"{i:02d}.png" for i in range(len(back))]
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            _, secs["encode_png"] = timed(
+                lambda: list(ex.map(image_io.save_rgb, paths, back)))
+    return {"images": len(imgs), "seconds": secs}
+
+
+def phase_cli() -> None:
+    """Phase 11: the command line at 1080p (see the module's docstring)."""
+    import pathlib
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from spread_spectrum_watermarking_torch.utils import (_codec, _native,
+                                                          rng_compat)
+
+    # The native builds, at their first use.
+    plain_rng = rng_compat.ChaChaRng.seed_from_u64(1)
+    plain = np.asarray([rng_compat.standard_normal_f64(plain_rng)
+                        for _ in range(N)], dtype=np.float32)
+    native = _native.available()
+    rng_equal = bool(native and np.array_equal(
+        _native.generate_fixed_normal_sequence(1, N), plain))
+    if native and not rng_equal:
+        raise AssertionError("the native RNG differs from its plain version")
+    _codec.available()
+    log("native", rng=dict(_native.BUILD_INFO), rng_bit_equal_seed1_n1000=(
+        rng_equal if native else "not built"), codec=dict(_codec.BUILD_INFO),
+        decoder="native codec" if _codec.available() else
+        f"PIL ({_codec.BUILD_INFO.get('missing')} absent)")
+
+    imgs = _texture_batch(60, 48, 1080, 1920)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        src = tmp / "in"
+        src.mkdir()
+        for i, img in enumerate(imgs):
+            Image.fromarray(img).save(src / f"t{i:02d}.jpg", quality=95)
+        outs = {}
+        for tier in ("highest", "default"):
+            outs[tier] = d = tmp / tier
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            rc, said = _cli(["batch", src, "--output-dir", d, "--seed", 9,
+                             "--jsonl", tmp / f"batch_{tier}.jsonl",
+                             "--precision", tier])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _kernel_counts()
+            pairs = (len(list(d.glob("*_wm.png"))),
+                     len(list(d.glob("*_wm.json"))))
+            if rc != 0 or pairs != (48, 48):
+                raise AssertionError(f"batch at {tier}: rc {rc}, {pairs}")
+            launched = (counts["k6a"] > 0 and counts["k7"] == 1
+                        if tier == "highest" else
+                        counts["k1"] > 0 and counts["k4"] > 0)
+            if not launched:
+                raise AssertionError(f"batch at {tier} launched {counts}")
+            log(f"cli_batch_{tier}", card=_card(), images=48,
+                shape=[1080, 1920, 3], launches=counts,
+                wall_seconds=wall, images_per_sec=48 / wall,
+                said=said.strip())
+
+            # `test`: each output's own mark matches, its neighbour's not.
+            sims = []
+            for i in range(4):
+                jl = tmp / f"test_{tier}_{i}.jsonl"
+                rc, _ = _cli(["test", src / f"t{i:02d}.jpg",
+                              d / f"t{i:02d}_wm.png", d / f"t{i:02d}_wm.json",
+                              d / f"t{i + 1:02d}_wm.json", "--jsonl", jl])
+                own, foreign = _jsonl(jl)
+                if rc != 0 or not own["matches"] or foreign["matches"]:
+                    raise AssertionError(f"test at {tier}: {own}, {foreign}")
+                sims.append([own["similarity"], foreign["similarity"]])
+            log(f"cli_test_{tier}", own_and_foreign_sigma=sims)
+
+            _cli_detect(tmp, tier, d, src)
+
+        log("cli_breakdown", card=_card(), **_cli_breakdown(src, outs))
+
+        # The module entry point, as a user runs it.
+        one = tmp / "one"
+        one.mkdir()
+        Image.fromarray(imgs[0]).save(one / "x.jpg", quality=95)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "spread_spectrum_watermarking_torch.cli",
+             "watermark", str(one / "x.jpg"), "-p", "--seed", "3"],
+            cwd=pathlib.Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or "exceeds 6 sigma: true" not in proc.stdout:
+            raise AssertionError(f"cli subprocess: {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr[-2000:]}")
+        log("cli_subprocess", seconds=time.perf_counter() - t0,
+            said=proc.stdout.strip().splitlines())
 
 
 def main() -> int:
@@ -1451,6 +1660,10 @@ def main() -> int:
     phase_4k()
     torch.cuda.empty_cache()
     phase_bench()
+    torch.cuda.empty_cache()
+    t_cli = time.perf_counter()
+    phase_cli()
+    log("cli", seconds=time.perf_counter() - t_cli)
     log("done", seconds=time.perf_counter() - t0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

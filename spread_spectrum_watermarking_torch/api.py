@@ -178,21 +178,31 @@ class Reader:
         Raises ValueError on the reference's panic conditions
         (src/algorithm.rs:550-555).
         """
-        if derived._rgb.shape != self._rgb.shape:
+        return self._extract_stack(derived._rgb[None], n)[0]
+
+    def _extract_stack(self, images, n: int) -> np.ndarray:
+        """:meth:`extract` of each image of a (B, H, W, 3) stack, in one
+        call -> (B, n): the CLI's ``detect`` reads a chunk of derived
+        images so, with the base's work cached as for one."""
+        stack = np.asarray(images)
+        if stack.shape[1:] != self._rgb.shape:
             raise ValueError(
                 "Derived coefficient length not equal to base coefficient length.")
         h, w = self._rgb.shape[:2]
         if n >= h * w:
             raise ValueError(
                 "Desired extraction length exceeds available coefficients.")
+        b = stack.shape[0]
+        derived = _tensor(stack, self._device)
         if self._fast:
             idx, base_vals = self._prepared(n)
             return _numpy(pipeline.extract_ranked(
-                self._image(), _tensor(derived._rgb, self._device),
-                idx, base_vals, self._config))
+                self._image().expand(b, -1, -1, -1), derived,
+                idx.expand(b, -1), base_vals.expand(b, -1), self._config))
         flat, idx = self._prepared(n)
-        dflat = _tensor(derived.coefficients(), self._device)
-        return _numpy(pipeline.extract_prepared(flat, idx, dflat, self._config))
+        return _numpy(pipeline.extract_prepared(
+            flat.expand(b, -1), idx.expand(b, -1),
+            pipeline.prepare_derived(derived, self._config), self._config))
 
 
 class Similarity:

@@ -8,8 +8,10 @@ as the always-available fallback and the decoder for any other format;
 quantization semantics live in :mod:`..ops.colorspace` so device and host
 paths agree exactly.
 
-A copy of the JAX package's module. The codec is not built for the port
-yet (:mod:`._codec` raises ImportError), so PIL is the path.
+A copy of the JAX package's module, but for when the codec is looked for:
+at the first decode or encode, where :mod:`._codec` builds it from the
+repository's source if this host has the libjpeg and libpng headers, not
+at import.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import numpy as np
 from ..ops import colorspace
 
 
-try:
-    from . import _codec  # C++ libjpeg/libpng codec; optional
-except ImportError:  # pragma: no cover - build-dependent
-    _codec = None
+def _native_codec():
+    """The C++ libjpeg/libpng codec where it is built for this host, else
+    None (PIL)."""
+    from . import _codec
+
+    return _codec if _codec.available() else None
 
 
 def load_rgb_u8(path: str | os.PathLike) -> np.ndarray:
@@ -35,11 +39,12 @@ def load_rgb_u8(path: str | os.PathLike) -> np.ndarray:
     tests/test_native.py) and falls back to PIL for formats it does not
     handle or when the extension is not built.
     """
-    if _codec is not None:
+    codec = _native_codec()
+    if codec is not None:
         with open(path, "rb") as f:
             data = f.read()
         try:
-            return _codec.decode_rgb_u8(data)
+            return codec.decode_rgb_u8(data)
         except ValueError:
             pass  # not JPEG/PNG (or an exotic variant): PIL handles it
     from PIL import Image
@@ -62,24 +67,36 @@ def save_rgb(path: str | os.PathLike, rgb: np.ndarray) -> None:
     arr = np.asarray(rgb)
     if arr.dtype != np.uint8:
         arr = colorspace.np_f32_to_u8(arr.astype(np.float32))
-    if _codec is not None and str(path).lower().endswith(".png"):
+    codec = _native_codec() if str(path).lower().endswith(".png") else None
+    if codec is not None:
         with open(path, "wb") as f:
-            f.write(_codec.encode_png(arr))
+            f.write(codec.encode_png(arr))
         return
     from PIL import Image
 
     Image.fromarray(arr, mode="RGB").save(path)
 
 
-def load_batch_u8(paths: Sequence[str | os.PathLike], num_threads: int = 8) -> list:
+def load_batch_u8(paths: Sequence[str | os.PathLike], num_threads: int = 8,
+                  return_errors: bool = False) -> list:
     """Decode many images concurrently (PIL releases the GIL during decode).
 
     A minimal prefetching data loader for the batch pipelines; returns a list
-    of (H, W, 3) uint8 arrays in input order.
+    of (H, W, 3) uint8 arrays in input order. With ``return_errors`` a path
+    whose decode raises gives its exception in its place instead, and the
+    rest still decode.
     """
     from concurrent.futures import ThreadPoolExecutor
 
+    load = _load_or_error if return_errors else load_rgb_u8
     if len(paths) <= 1:
-        return [load_rgb_u8(p) for p in paths]
+        return [load(p) for p in paths]
     with ThreadPoolExecutor(max_workers=num_threads) as ex:
-        return list(ex.map(load_rgb_u8, paths))
+        return list(ex.map(load, paths))
+
+
+def _load_or_error(path: str | os.PathLike):
+    try:
+        return load_rgb_u8(path)
+    except Exception as e:  # noqa: BLE001 -- the caller isolates each path
+        return e

@@ -23,9 +23,11 @@ area 0.00492867323399); end-to-end correctness is pinned by the golden-image
 parity test (a wrong sequence yields ~0 sigma instead of ~31).
 
 Performance note: this is a host-side fixture/compat tool; bulk marks come
-from ``torch.Generator`` (marks.py). A copy of the JAX package's module:
-the C++ fast path that module takes when ``native/`` is built is not built
-for the port, so this module is pure Python (bit-equal, slower).
+from ``torch.Generator`` (marks.py). A copy of the JAX package's module,
+with its dispatch: :func:`generate_fixed_normal_sequence` takes the C++
+build of ``native/ssw_native.cpp`` (:mod:`._native`, built at its first
+call where ``g++`` and ``Python.h`` exist), and the pure Python below is
+its plain version, bit-equal and slower.
 """
 
 from __future__ import annotations
@@ -211,6 +213,10 @@ def generate_fixed_normal_sequence(seed: int, length: int) -> np.ndarray:
     sampled through ``StandardNormal`` ``length`` times (f32 samples are f64
     casts in rand_distr).
     """
+    from . import _native  # C++ fast path, built at its first use
+
+    if _native.available():
+        return _native.generate_fixed_normal_sequence(seed, length)
     rng = ChaChaRng.seed_from_u64(seed)
     return np.asarray([standard_normal_f64(rng) for _ in range(length)],
                       dtype=np.float32)

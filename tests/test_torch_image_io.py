@@ -1,12 +1,15 @@
 """utils/image_io of the port against the JAX package's: decoded pixels,
-encoded files and the f32 quantization, bit for bit (PIL is the codec of
-both here)."""
+encoded files and the f32 quantization, bit for bit. Encoded files are
+compared with both packages on one codec: the port builds the native one
+(native/ssw_codec.cpp) where the libjpeg and libpng headers exist, and the
+JAX package then gets the same one; elsewhere both use PIL."""
 
 import numpy as np
 import pytest
 from PIL import Image
 
 from spread_spectrum_watermarking_torch.ops import colorspace as tc
+from spread_spectrum_watermarking_torch.utils import _codec
 from spread_spectrum_watermarking_torch.utils import image_io as ti
 from spread_spectrum_watermarking_tpu.ops import colorspace as jc
 from spread_spectrum_watermarking_tpu.utils import image_io as ji
@@ -17,7 +20,13 @@ def _image(seed=0, h=37, w=59):
                                                 dtype=np.uint8)
 
 
-def test_png_round_trip_bit_equal(tmp_path):
+def _same_codec(monkeypatch):
+    """The JAX package's image_io on the codec the port's takes."""
+    monkeypatch.setattr(ji, "_codec", _codec if _codec.available() else None)
+
+
+def test_png_round_trip_bit_equal(tmp_path, monkeypatch):
+    _same_codec(monkeypatch)
     img = _image()
     ti.save_rgb(tmp_path / "t.png", img)
     ji.save_rgb(tmp_path / "j.png", img)
@@ -27,7 +36,8 @@ def test_png_round_trip_bit_equal(tmp_path):
     np.testing.assert_array_equal(t, ji.load_rgb_u8(tmp_path / "t.png"))
 
 
-def test_f32_save_and_load_bit_equal(tmp_path):
+def test_f32_save_and_load_bit_equal(tmp_path, monkeypatch):
+    _same_codec(monkeypatch)
     rng = np.random.default_rng(1)
     # Values on and around the half steps, and outside [0, 1].
     f = (rng.integers(-20, 5120, (16, 24, 3)) / 5100.0).astype(np.float32)
@@ -66,3 +76,23 @@ def test_batch_loader_keeps_order(tmp_path):
     assert len(t) == 5
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_good", [0, 4])
+def test_batch_loader_returns_each_paths_own_error(tmp_path, n_good):
+    paths = []
+    for i in range(n_good):
+        paths.append(tmp_path / f"{i}.png")
+        ti.save_rgb(paths[-1], _image(20 + i, 8, 9 + i))
+    bad = tmp_path / "bad.jpg"
+    bad.write_bytes(b"not an image")
+    paths.insert(n_good // 2, bad)
+    with pytest.raises(Exception):
+        ti.load_batch_u8(paths, num_threads=3)
+    got = ti.load_batch_u8(paths, num_threads=3, return_errors=True)
+    assert len(got) == len(paths)
+    for p, g in zip(paths, got):
+        if p == bad:
+            assert isinstance(g, Exception)
+        else:
+            np.testing.assert_array_equal(g, ji.load_rgb_u8(p))

@@ -13,13 +13,16 @@ import sys
 import spread_spectrum_watermarking_torch
 import spread_spectrum_watermarking_torch.interop
 import spread_spectrum_watermarking_torch.bench
-from spread_spectrum_watermarking_torch.utils import (debug, image_io,
-                                                      rng_compat, storage)
+import spread_spectrum_watermarking_torch.cli
+from spread_spectrum_watermarking_torch.utils import (_codec, _native, debug,
+                                                      image_io, rng_compat,
+                                                      storage)
 from spread_spectrum_watermarking_torch.kernels import _build
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'spread_spectrum_watermarking_tpu')]
-print(loaded)
-sys.exit(1 if loaded or _build._lib is not None else 0)
+built = [_build._lib, _native.BUILD_INFO, _codec.BUILD_INFO]
+print(loaded, built)
+sys.exit(1 if loaded or any(built) else 0)
 """
 
 
