@@ -89,7 +89,24 @@ Phases, one line of output each, any failure exits non-zero:
    host and device piece of them timed alone (``cli_breakdown``), and a
    ``native`` line: the native RNG's build, bit-equal to its pure-Python
    version at seed 1, length 1000, and the codec's build or why it was
-   skipped (this host's decoder is then PIL).
+   skipped (this host's decoder is then PIL);
+12. ``parallel/`` (``parallel_*`` lines): NCCL with one rank per card, a
+   group of one in this process: DP ``embed``/``extract`` at 48 x 1080p
+   at DEFAULT and HIGHEST bit-equal to the single-device call (K1 and K4,
+   or K6a and K7, launched), ``embed_spatial``/``extract_spatial`` of one
+   4K image at HIGHEST within one u8 step of the single-device embed on
+   under 2% of values and above 6 sigma, the corpus-sharded bench at its
+   defaults (32 4K images, chunks of 8, HIGHEST; own marks above 6
+   sigma, others below; K7 launched) and one of its chunks timed by
+   parts; then gloo ranks that all compute on this card (NCCL refuses two
+   ranks on one card), spawned with ``parallel.launch.run_ranks``: DP
+   (4, 1) at 1080p bit-equal at DEFAULT and HIGHEST, spatial (1, 4) at
+   1080p and at 1081 x 1918, the corpus (2, 2) at height 1083 (padding
+   rows zero, within one step on under 10%, 99% of values within 5e-2
+   of the single-device read), the staged embed on 3 ranks bit-equal at
+   DEFAULT and HIGH (HIGHEST refused), and ``dryrun_multichip(4,
+   "cuda")``; every rank's kernel launches are recorded and K1, K4, K6a
+   and K7 must have launched inside ranks.
 
 The device line also reports, for information only, which of PIL, the
 libjpeg and libpng headers, ``Python.h`` and ``g++`` the machine has (the
@@ -951,29 +968,15 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
 
 
 def _kernel_counts() -> dict:
-    from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
-    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
-    from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
-    from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
-    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+    from spread_spectrum_watermarking_torch import kernels
 
-    return {"k1": k1.LAUNCHES, "k1_pair": k1.PAIR_LAUNCHES,
-            "k1_high": k1.HIGH_LAUNCHES,
-            "k4": k4.LAUNCHES, "k6a": k6.FORWARD_LAUNCHES,
-            "k6b": k6.INVERSE_LAUNCHES, "k1f": k1f.LAUNCHES,
-            "k1f_high": k1f.HIGH_LAUNCHES, "k7": k7.LAUNCHES}
+    return kernels.launch_counts()
 
 
 def _zero_kernel_counts() -> None:
-    from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
-    from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
-    from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
-    from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
-    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+    from spread_spectrum_watermarking_torch import kernels
 
-    k1.LAUNCHES = k1.PAIR_LAUNCHES = k1.HIGH_LAUNCHES = k4.LAUNCHES = 0
-    k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
-    k1f.LAUNCHES = k1f.HIGH_LAUNCHES = k7.LAUNCHES = 0
+    kernels.reset_launch_counts()
 
 
 def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
@@ -1579,6 +1582,331 @@ def phase_cli() -> None:
             said=proc.stdout.strip().splitlines())
 
 
+def _step_share(a, b) -> tuple[int, float]:
+    """(largest u8 step, share of values that differ) between two images."""
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def _own_cross(ext, marks) -> tuple[float, float]:
+    """(smallest own-mark sigma, largest |cross-mark| sigma) of (B, n)
+    extractions against their (B, n) marks."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.ops import modulation
+
+    sims = modulation.similarity(torch.as_tensor(ext, device="cuda"),
+                                 torch.as_tensor(marks, device="cuda")).cpu()
+    eye = torch.eye(sims.shape[0], dtype=torch.bool)
+    cross = float(sims[~eye].abs().max()) if sims.shape[0] > 1 else 0.0
+    return float(torch.diagonal(sims).min()), cross
+
+
+def _need_launches(tag: str, counts: dict, names) -> None:
+    missing = [k for k in names if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels {missing} not launched: {counts}")
+
+
+def _corpus_breakdown(mesh) -> dict:
+    """One chunk of the corpus-sharded bench (8 4K images, its inputs,
+    HIGHEST) timed by parts with CUDA events, ms: the host-to-device copy
+    of the chunk, ``embed_corpus`` on the device-resident chunk, the copy
+    of the base, ``extract_corpus``, the similarity; the mean of 3 after
+    a warm-up."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import bench
+    from spread_spectrum_watermarking_torch.ops import modulation
+    from spread_spectrum_watermarking_torch.parallel import mesh as pmesh
+    from spread_spectrum_watermarking_torch.parallel import \
+        pipeline_sharded as ps
+
+    rng = np.random.default_rng(3)
+    imgs = bench.natural_corpus_chunk(8, 2160, 3840, rng)
+    marks = torch.from_numpy(
+        rng.standard_normal((8, N)).astype(np.float32)).cuda()
+    names = ("copy_chunk", "embed_corpus", "copy_base", "extract_corpus",
+             "similarity")
+    total = dict.fromkeys(names, 0.0)
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        rgb = torch.from_numpy(imgs).cuda()
+        ev[1].record()
+        marked = ps.embed_corpus(rgb, marks, mesh)
+        ev[2].record()
+        base = torch.from_numpy(imgs).cuda()
+        ev[3].record()
+        ext = ps.extract_corpus(base, pmesh.Local(marked), N, mesh,
+                                wm.ReadConfig(), height=2160)
+        ev[4].record()
+        modulation.similarity(ext, marks).cpu()
+        ev[5].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                total[k] += ev[i].elapsed_time(ev[i + 1]) / 3
+    return total
+
+
+def _parallel_nccl() -> dict:
+    """NCCL at the world size of the cards this script uses (one): a group
+    of one rank in this process. DP embed/extract at 48 x 1080p at DEFAULT
+    and HIGHEST bit-equal to the single-device call, spatial embed/extract
+    of one 4K image at HIGHEST against the single-device embed, and the
+    corpus-sharded bench at its defaults (BASELINE config 5)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import bench
+    from spread_spectrum_watermarking_torch.models import pipeline
+    from spread_spectrum_watermarking_torch.parallel import mesh as pmesh
+    from spread_spectrum_watermarking_torch.parallel import \
+        pipeline_sharded as ps
+
+    tmp = tempfile.mkdtemp(prefix="ssw-smoke-")
+    pmesh.multihost_initialize(
+        device="cuda", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+        world_size=1)
+    out = {}
+    try:
+        mesh = pmesh.make_mesh(None, "cuda")
+        rgb = _texture_batch(121, 48, 1080, 1920)
+        marks = np.random.default_rng(121).standard_normal(
+            (48, 1, N)).astype(np.float32)
+        rgb_dev, marks_dev = torch.from_numpy(rgb).cuda(), \
+            torch.from_numpy(marks).cuda()
+        for p, names in ((wm.Precision.DEFAULT, ("k1", "k1_pair", "k4")),
+                         (wm.Precision.HIGHEST, ("k6a", "k7"))):
+            cfg, rcfg = wm.WriteConfig(precision=p), wm.ReadConfig(precision=p)
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            marked = ps.embed_batch_sharded(rgb, marks, mesh, cfg)
+            ext = ps.extract_batch_sharded(rgb, pmesh.Local(marked), N, mesh,
+                                           rcfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _kernel_counts()
+            want = pipeline.embed(rgb_dev, marks_dev, cfg)
+            want_ext = pipeline.extract(rgb_dev, want, N, rcfg)
+            equal = (bool(torch.equal(marked, want)),
+                     bool(torch.equal(ext, want_ext)))
+            own, _ = _own_cross(ext, marks[:, 0])
+            rec = dict(precision=p.value, shape=list(rgb.shape),
+                       bit_equal=equal, min_own_sigma=own, launches=counts,
+                       seconds_with_copies=seconds)
+            log("parallel_nccl_dp", **rec)
+            if not all(equal) or own <= SIGMA:
+                raise AssertionError(f"NCCL DP {p.value}: {rec}")
+            _need_launches(f"NCCL DP {p.value}", counts, names)
+            out[f"dp_{p.value}"] = counts
+            del marked, ext, want, want_ext
+        del rgb_dev, marks_dev
+        torch.cuda.empty_cache()
+
+        img = _texture_batch(122, 1, 2160, 3840)[0]
+        mark = np.random.default_rng(122).standard_normal(N).astype(
+            np.float32)
+        _zero_kernel_counts()
+        marked = pmesh.gather(ps.embed_spatial(img, mark, mesh), mesh,
+                              {0: pmesh.SPATIAL_AXIS})
+        ext = ps.extract_spatial(img, marked, N, mesh)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        want = pipeline.embed(torch.from_numpy(img).cuda(),
+                              torch.from_numpy(mark).cuda())
+        step, share = _step_share(marked.cpu(), want.cpu())
+        own, _ = _own_cross(ext[None], mark[None])
+        rec = dict(shape=list(img.shape), max_step=step, share_differing=share,
+                   own_sigma=own, launches=counts)
+        log("parallel_nccl_spatial", **rec)
+        if step > 1 or share >= 0.02 or own <= SIGMA:
+            raise AssertionError(f"NCCL spatial: {rec}")
+        del marked, want
+        torch.cuda.empty_cache()
+
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = bench.run_corpus_sharded_bench()
+        counts = _kernel_counts()
+        log("parallel_corpus_bench", card=_card(),
+            wall_seconds=time.perf_counter() - t0, launches=counts, **res)
+        if not (np.isfinite(res["corpus_images_per_sec"])
+                and res["corpus_images_per_sec"] > 0
+                and res["min_own_mark_sigma"] > SIGMA
+                and res["max_cross_mark_sigma"] < SIGMA
+                and res["comm_backend"] == "nccl"):
+            raise AssertionError(f"corpus-sharded bench: {res}")
+        _need_launches("corpus-sharded bench", counts, ("k7",))
+        out["corpus_bench"] = counts
+        log("parallel_corpus_breakdown", card=_card(),
+            ms=_corpus_breakdown(mesh))
+    finally:
+        dist.destroy_process_group()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _parallel_ranks(backend: str = "gloo") -> dict:
+    """4 spawned ranks (3 for the staged embed): gloo ranks that all compute
+    on cuda:0 (NCCL refuses two ranks on one card), or with ``"nccl"``
+    one rank per card of four or more. DP (4, 1), spatial (1, 4) at 1080p
+    and at a size the ranks do not divide, the corpus (2, 2) at a height
+    they do not divide, the staged embed, and ``dryrun_multichip(4,
+    "cuda")``, each held against the single-device path on cuda:0 as the
+    CPU tests hold it."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch.models import pipeline
+    from spread_spectrum_watermarking_torch.parallel import dryrun, launch
+
+    rng = np.random.default_rng(123)
+    dp_rgb = _texture_batch(123, 4, 1080, 1920)
+    dp_marks = rng.standard_normal((4, 1, N)).astype(np.float32)
+    sp = [((1, 4), _texture_batch(124, 1, 1080, 1920)[0]),
+          ((1, 4), _texture_batch(125, 1, 1081, 1918)[0])]
+    sp_marks = [rng.standard_normal(N).astype(np.float32) for _ in sp]
+    c_imgs = _texture_batch(126, 4, 1083, 1920)
+    c_marks = rng.standard_normal((4, N)).astype(np.float32)
+    cases = {
+        "dp": {"shape": (4, 1), "images": dp_rgb, "marks": dp_marks, "n": N,
+               "precisions": ["default", "highest"]},
+        "spatial": {"cases": [(shape, img, m, N)
+                              for (shape, img), m in zip(sp, sp_marks)]},
+        "corpus": {"shape": (2, 2), "images": c_imgs, "marks": c_marks,
+                   "n": N},
+    }
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(dryrun.parity_rank, 4, backend=backend,
+                             device="cuda", timeout=300, args=(cases, "cuda"))
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    launches = [r["launches"] for r in ranks]
+    out = {}
+
+    rgb_dev = torch.from_numpy(dp_rgb).cuda()
+    marks_dev = torch.from_numpy(dp_marks).cuda()
+    for prec, names in (("default", ("k1", "k4")), ("highest", ("k6a", "k7"))):
+        p = wm.Precision(prec)
+        want = pipeline.embed(rgb_dev, marks_dev, wm.WriteConfig(precision=p))
+        want_ext = pipeline.extract(rgb_dev, want, N,
+                                    wm.ReadConfig(precision=p))
+        equal = (bool(np.array_equal(r0["dp"][prec]["marked"],
+                                     want.cpu().numpy())),
+                 bool(np.array_equal(r0["dp"][prec]["ext"],
+                                     want_ext.cpu().numpy())))
+        log(f"parallel_{backend}_dp", precision=prec, bit_equal=equal,
+            shape=list(dp_rgb.shape))
+        if not all(equal):
+            raise AssertionError(f"{backend} DP {prec} differs from one device")
+    for r, counts in enumerate(launches):
+        _need_launches(f"{backend} DP rank {r}", counts["dp"],
+                       ("k1", "k4", "k6a", "k7"))
+        _need_launches(f"{backend} corpus rank {r}", counts["corpus"], ("k7",))
+
+    for i, ((shape, img), m) in enumerate(zip(sp, sp_marks)):
+        got = r0["spatial"][i]
+        want = pipeline.embed(torch.from_numpy(img).cuda(),
+                              torch.from_numpy(m).cuda()).cpu()
+        step, share = _step_share(got["marked"], want)
+        own, _ = _own_cross(got["ext"][None], m[None])
+        rec = dict(mesh=list(shape), shape=list(img.shape), max_step=step,
+                   share_differing=share, own_sigma=own)
+        log(f"parallel_{backend}_spatial", **rec)
+        if step > 1 or share >= 0.02 or own <= SIGMA:
+            raise AssertionError(f"{backend} spatial: {rec}")
+
+    got = r0["corpus"]
+    h = c_imgs.shape[1]
+    want = pipeline.embed(torch.from_numpy(c_imgs).cuda(),
+                          torch.from_numpy(c_marks[:, None]).cuda()).cpu()
+    step, share = _step_share(got["marked"][:, :h], want)
+    own, cross = _own_cross(got["ext"], c_marks)
+    single = pipeline.extract(torch.from_numpy(c_imgs).cuda(),
+                              torch.from_numpy(got["marked"][:, :h]).cuda(),
+                              N).cpu().numpy()
+    agree = float((np.abs(got["ext"] - single) < 5e-2).mean())
+    rec = dict(mesh=[2, 2], shape=list(got["marked"].shape), max_step=step,
+               share_differing=share, padding_zero=not got["marked"][:, h:].any(),
+               min_own_sigma=own, max_cross_sigma=cross,
+               share_within_5e_2=agree)
+    log(f"parallel_{backend}_corpus", **rec)
+    if (step > 1 or share >= 0.10 or not rec["padding_zero"] or own <= SIGMA
+            or cross >= 4.0 or agree <= 0.99):
+        raise AssertionError(f"{backend} corpus: {rec}")
+    out["ranks_seconds"] = seconds
+    out["rank_launches"] = launches
+
+    mbs = _texture_batch(127, 8, 1080, 1920).reshape(4, 2, 1080, 1920, 3)
+    smark = rng.standard_normal(N).astype(np.float32)
+    runs = [(smark, "default"), (smark, "high")]
+    t0 = time.perf_counter()
+    staged = launch.run_ranks(
+        dryrun.parity_rank, 3, backend=backend, device="cuda", timeout=300,
+        args=({"staged": {"images": mbs, "runs": runs}}, "cuda"))
+    out["staged_seconds"] = time.perf_counter() - t0
+    for k, (m, prec) in enumerate(runs):
+        cfg = wm.WriteConfig(precision=wm.Precision(prec))
+        ref = np.stack([pipeline.embed(
+            torch.from_numpy(mbs[i]).cuda(), torch.from_numpy(m[None]).cuda(),
+            cfg).cpu().numpy() for i in range(mbs.shape[0])])
+        equal = bool(np.array_equal(staged[-1]["staged"]["runs"][k], ref))
+        log(f"parallel_{backend}_staged", precision=prec, shape=list(mbs.shape),
+            bit_equal=equal,
+            launches=[r["launches"]["staged"] for r in staged])
+        if not equal:
+            raise AssertionError(f"{backend} staged {prec} != pipeline.embed")
+    if not all(r["staged"]["highest_raises"] for r in staged):
+        raise AssertionError(f"{backend} staged: HIGHEST was not refused")
+    _need_launches("staged stage 0", staged[0]["launches"]["staged"],
+                   ("k1", "k1_high"))
+    _need_launches("staged stage 2", staged[2]["launches"]["staged"], ("k4",))
+    out["staged_launches"] = [r["launches"]["staged"] for r in staged]
+
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(4, "cuda", backend=backend, timeout=300)
+    log(f"parallel_{backend}_dryrun", seconds=time.perf_counter() - t0, ranks=dry)
+    return out
+
+
+def phase_parallel() -> None:
+    """Phase 12: ``parallel/`` on the card, NCCL at one rank per card, then
+    gloo ranks sharing the card; each rank's kernel launches recorded."""
+    t0 = time.perf_counter()
+    nccl = _parallel_nccl()
+    gloo = _parallel_ranks("gloo")
+    log("parallel", seconds=time.perf_counter() - t0, card=_card(),
+        nccl_launches=nccl, gloo_launches=gloo)
+
+
+def _multicard_corpus_bench(n: int) -> None:
+    """The corpus-sharded bench at its defaults on ``n`` cards, one NCCL
+    rank each, at the default mesh ``(n/4, 4)`` and at ``(n, 1)``; each
+    rank runs the bench, rank 0's result is logged."""
+    from spread_spectrum_watermarking_torch import bench
+    from spread_spectrum_watermarking_torch.parallel import launch
+
+    for shape in (None, (n, 1)):
+        t0 = time.perf_counter()
+        res = launch.run_ranks(
+            bench.run_corpus_sharded_bench, n, device="cuda", timeout=600,
+            args=(32, 8, "4k", N, "highest", shape))[0]
+        log("parallel_multicard_corpus_bench", card=_card(),
+            wall_seconds=time.perf_counter() - t0, **res)
+        if not (res["min_own_mark_sigma"] > SIGMA
+                and res["max_cross_mark_sigma"] < SIGMA
+                and res["comm_backend"] == "nccl"):
+            raise AssertionError(f"multi-card corpus bench: {res}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1597,6 +1925,19 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     phase_device()
+    if sys.argv[1:] == ["--ranks-on-cards"]:
+        # Phase 12's multi-rank paths with NCCL, one rank per card.
+        if torch.cuda.device_count() < 4:
+            print("chip_smoke: --ranks-on-cards needs 4 cards",
+                  file=sys.stderr)
+            return 2
+        _parallel_ranks("nccl")
+        _multicard_corpus_bench(torch.cuda.device_count())
+        log("done", seconds=time.perf_counter() - t0)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     k1_rec = {"name": "luma_pass", "route": "cuda",
               "source": "spread_spectrum_watermarking_torch/csrc/luma_pass.cu",
               "replaces": "spread_spectrum_watermarking_tpu/ops/fused_dct.py:295"
@@ -1664,6 +2005,8 @@ def main() -> int:
     t_cli = time.perf_counter()
     phase_cli()
     log("cli", seconds=time.perf_counter() - t_cli)
+    torch.cuda.empty_cache()
+    phase_parallel()
     log("done", seconds=time.perf_counter() - t0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -17,7 +17,9 @@ Run ``python -m spread_spectrum_watermarking_torch.bench [batch]`` on the
 card for the headline (``embed_verified`` at DEFAULT, 1080p, batch 48, one
 JSON line, as the repository's root ``bench.py`` prints the JAX package's),
 or with ``--config`` for the other configs; ``--help`` lists the arguments,
-which are those of the JAX package's ``cli bench``.
+which are those of the JAX package's ``cli bench``. ``--config
+corpus-sharded`` also runs under ``torchrun --nproc-per-node N``, one rank
+per card.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from typing import Tuple
 
@@ -464,12 +468,94 @@ def run_corpus_bench(n_images: int = 1024, chunk: int = 64, size: str = "1080p",
     }
 
 
-def run_corpus_sharded_bench(*args, **kwargs) -> dict:
-    """BASELINE.json config 5 (a 4K corpus over a joint data and spatial
-    mesh) needs the port of ``parallel/``, which is not done."""
-    raise NotImplementedError(
-        "run_corpus_sharded_bench needs parallel/, which is not ported yet "
-        "(ROADMAP.md, Queue 1: parallel, after the CLI)")
+def run_corpus_sharded_bench(n_images: int = 32, chunk: int = 8,
+                             size: str = "4k", length: int = 1000,
+                             precision: str = "highest", mesh_shape=None,
+                             device="cuda") -> dict:
+    """BASELINE.json config 5: a 4K corpus over a joint (data, spatial)
+    mesh of ranks, each rank one process (``parallel``).
+
+    DP over the image batch, TP within each image (row sharding, the
+    sharded DCT, the distributed top-k and the local sparse delta-IDCT of
+    ``parallel.pipeline_sharded.embed_corpus``, whose write-back is kernel
+    K7 on the card). Every rank runs this function: under ``torchrun`` it
+    joins the group the environment describes; run alone, with no group
+    yet, it makes a group of one (NCCL on the card, gloo on the CPU) and
+    leaves it at the end. The mesh is ``(world // s, s)`` with ``s = 4``
+    when the world size divides by 4, else 1, unless ``mesh_shape`` is
+    given. Each chunk's host images are placed (each rank copies its own
+    block to its device), embedded, read back with ``extract_corpus`` and
+    swept against the chunk's marks, the similarities copied to the host;
+    wall-clocked after one warm-up chunk. Returns the JAX harness's keys
+    (``platform`` is the torch device type) plus ``backend``, ``device``
+    and ``comm_backend`` (the process group's).
+    """
+    import torch.distributed as dist
+
+    from .ops import modulation
+    from .parallel import mesh as pmesh
+    from .parallel.pipeline_sharded import embed_corpus, extract_corpus
+
+    own_group = not dist.is_initialized()
+    tmp = None
+    if own_group:
+        alone = {}
+        if "RANK" not in os.environ:  # not under torchrun: a group of one
+            tmp = tempfile.mkdtemp(prefix="ssw-bench-")
+            alone = dict(store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                         rank=0, world_size=1)
+        pmesh.multihost_initialize(device=device, **alone)
+    try:
+        dev = pmesh.rank_device(device)
+        world = dist.get_world_size()
+        if mesh_shape is None:
+            ns = 4 if world % 4 == 0 else 1
+            mesh_shape = (world // ns, ns)
+        mesh = pmesh.make_mesh(tuple(mesh_shape), device)
+        h, w = parse_size(size)
+        prec = Precision(precision)
+        wcfg = WriteConfig(precision=prec)
+        rcfg = ReadConfig(precision=prec)
+
+        rng = np.random.default_rng(3)
+        imgs = natural_corpus_chunk(chunk, h, w, rng)
+        marks = rng.standard_normal((chunk, length)).astype(np.float32)
+        marks_dev = torch.from_numpy(marks).to(dev)
+        hp = pmesh.padded_size(h, mesh.shape[pmesh.SPATIAL_AXIS])
+        base_pad = np.pad(imgs, ((0, 0), (0, hp - h), (0, 0), (0, 0)))
+
+        def one_chunk():
+            marked = embed_corpus(imgs, marks, mesh, wcfg)
+            ext = extract_corpus(base_pad, pmesh.Local(marked), length, mesh,
+                                 rcfg, height=h)
+            ext = pmesh.gather(ext, mesh, {0: pmesh.DATA_AXIS})
+            return modulation.similarity(ext, marks_dev).cpu().numpy()
+
+        one_chunk()  # warm up: kernel build, cuBLAS and NCCL set-up
+        n_chunks = max(1, n_images // chunk)
+        t0 = time.perf_counter()
+        sims_all = [one_chunk() for _ in range(n_chunks)]
+        dt = time.perf_counter() - t0
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    sims = np.mean(sims_all, axis=0)
+    own = np.diag(sims)
+    cross = np.abs(sims[~np.eye(chunk, dtype=bool)])
+    return {
+        "size": f"{h}x{w}", "n_images": n_chunks * chunk, "chunk": chunk,
+        "mesh": dict(mesh.shape), "devices": world, "platform": dev.type,
+        "precision": prec.value,
+        "corpus_images_per_sec": n_chunks * chunk / dt,
+        "seconds_total": dt,
+        "mean_own_mark_sigma": float(own.mean()),
+        "min_own_mark_sigma": float(own.min()),
+        "max_cross_mark_sigma": float(cross.max()),
+        **_backend(dev), "comm_backend": mesh.backend,
+    }
 
 
 _CONFIGS = ["headline", "throughput", "latency", "extract-cached",
@@ -501,8 +587,11 @@ def add_bench_arguments(parser: argparse.ArgumentParser) -> None:
                              "throughput: embed and extract as separate "
                              "calls; extract-cached: fixed originals, "
                              "streamed derived (reader cache); corpus: end "
-                             "to end corpus + mark-database sweep; sweep: "
-                             "the similarity product only.")
+                             "to end corpus + mark-database sweep; "
+                             "corpus-sharded: the corpus over a (data, "
+                             "spatial) mesh of ranks (parallel/; under "
+                             "torchrun, or alone as a group of one); "
+                             "sweep: the similarity product only.")
     parser.add_argument("--corpus-images", type=int, default=1024)
     parser.add_argument("--sweep-marks", type=int, default=10000)
     parser.add_argument("--content", default="noise",

@@ -519,12 +519,8 @@ def cmd_bench(args, device: torch.device) -> int:
                                     n_marks=args.sweep_marks, **common))
     elif args.config == "corpus-sharded":
         # BASELINE config 5: corpus over a joint (data, spatial) mesh.
-        try:
-            show(bench.run_corpus_sharded_bench(
-                n_images=args.corpus_images, chunk=args.batch, **common))
-        except NotImplementedError as e:
-            print(f"bench corpus-sharded: {e}", file=sys.stderr)
-            return 2
+        show(bench.run_corpus_sharded_bench(
+            n_images=args.corpus_images, chunk=args.batch, **common))
     elif args.config == "sweep":
         show(bench.run_similarity_sweep_bench(
             n_extracted=args.corpus_images, n_marks=args.sweep_marks,

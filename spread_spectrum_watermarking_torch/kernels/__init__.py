@@ -1,5 +1,35 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 Importing this package builds and loads nothing; ``_build`` compiles
-``csrc/*.cu`` on the first launch.
+``csrc/*.cu`` on the first launch. Each wrapper counts its kernel's
+launches in this process (plain-version calls are not counted):
+:func:`launch_counts` reads them all, :func:`reset_launch_counts` sets
+them to 0.
 """
+
+
+def _modules():
+    from . import add_quantize, dct2d_fused, embed_epilogue, fold_pass
+    from . import luma_pass
+
+    return {"k1": (luma_pass, "LAUNCHES"), "k1_pair": (luma_pass,
+                                                       "PAIR_LAUNCHES"),
+            "k1_high": (luma_pass, "HIGH_LAUNCHES"),
+            "k4": (embed_epilogue, "LAUNCHES"),
+            "k6a": (dct2d_fused, "FORWARD_LAUNCHES"),
+            "k6b": (dct2d_fused, "INVERSE_LAUNCHES"),
+            "k1f": (fold_pass, "LAUNCHES"),
+            "k1f_high": (fold_pass, "HIGH_LAUNCHES"),
+            "k7": (add_quantize, "LAUNCHES")}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count in this process, by its short name
+    (``k1``, ``k1_pair``, ``k1_high``, ``k4``, ``k6a``, ``k6b``, ``k1f``,
+    ``k1f_high``, ``k7``)."""
+    return {k: getattr(m, a) for k, (m, a) in _modules().items()}
+
+
+def reset_launch_counts() -> None:
+    for m, a in _modules().values():
+        setattr(m, a, 0)

@@ -14,6 +14,7 @@ from spread_spectrum_watermarking_torch import bench as tb
 from spread_spectrum_watermarking_tpu import bench as jb
 
 TINY = dict(size="64x96", length=50, iters=2)
+TINY_SHARDED = dict(n_images=4, chunk=2, size="64x96", length=100)
 
 
 def test_parse_size():
@@ -151,10 +152,39 @@ def test_flip_is_an_identity_with_a_dependence():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tb.run_corpus_sharded_bench()
+    # A mesh that does not fit the world (a group of one here) is refused,
+    # and the group the bench made for itself is left again.
+    with pytest.raises(ValueError, match="mesh shape"):
+        tb.run_corpus_sharded_bench(mesh_shape=(2, 1), device="cpu",
+                                    **TINY_SHARDED)
+    assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="fast tiers"):
         tb.run_cached_extract_bench(precision="highest", device="cpu", **TINY)
+
+
+def test_corpus_sharded_bench_runs_on_one_gloo_rank():
+    # BASELINE config 5 run alone on the CPU: a group of one gloo rank, a
+    # (1, 1) mesh; every image detects its own mark and not the others'.
+    res = tb.run_corpus_sharded_bench(device="cpu", **TINY_SHARDED)
+    assert res["min_own_mark_sigma"] > 6.0
+    assert res["max_cross_mark_sigma"] < 4.0
+    assert res["mesh"] == {"data": 1, "spatial": 1} and res["devices"] == 1
+    assert res["comm_backend"] == "gloo" and res["backend"] == "torch-cpu"
+    assert res["n_images"] == 4 and res["corpus_images_per_sec"] > 0
+    assert not torch.distributed.is_initialized()
+
+
+def test_corpus_sharded_bench_matches_jax():
+    # The same seeded 4-image corpus: the port on one gloo rank, mesh
+    # (1, 1); JAX on its 8 virtual CPU devices, mesh (2, 4).
+    t = tb.run_corpus_sharded_bench(device="cpu", **TINY_SHARDED)
+    j = jb.run_corpus_sharded_bench(mesh_shape=(2, 4), **TINY_SHARDED)
+    assert set(j) <= set(t), set(j) - set(t)
+    for key in ("size", "n_images", "chunk", "precision"):
+        assert t[key] == j[key]
+    for key in ("mean_own_mark_sigma", "min_own_mark_sigma",
+                "max_cross_mark_sigma"):
+        assert abs(t[key] - j[key]) <= 0.01, (key, t[key], j[key])
 
 
 def test_main_prints_the_headline_and_the_configs(capsys):

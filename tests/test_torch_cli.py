@@ -409,5 +409,11 @@ def test_bench_runs_each_config_with_the_jax_cli_arguments(config, capsys):
 
 
 def test_bench_corpus_sharded_exits_2_until_parallel_is_ported(capsys):
-    assert run("bench", "--config", "corpus-sharded") == 2
-    assert "parallel/" in capsys.readouterr().err
+    # parallel/ is ported: the config runs (here on one gloo rank on the
+    # CPU) and exits 0 with the JAX harness's keys.
+    rc = run("bench", "--config", "corpus-sharded", "--size", "32x48",
+             "--length", 100, "--batch", 2, "--corpus-images", 4)
+    assert rc == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["backend"] == "torch-cpu" and last["n_images"] == 4
+    assert last["mesh"] == {"data": 1, "spatial": 1}

@@ -18,6 +18,12 @@ from spread_spectrum_watermarking_torch.utils import (_codec, _native, debug,
                                                       image_io, rng_compat,
                                                       storage)
 from spread_spectrum_watermarking_torch.kernels import _build
+import spread_spectrum_watermarking_torch.parallel
+from spread_spectrum_watermarking_torch.parallel import (dct_sharded, dryrun,
+                                                         launch, mesh,
+                                                         pipeline_sharded,
+                                                         pipeline_staged,
+                                                         topk_sharded)
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'spread_spectrum_watermarking_tpu')]
 built = [_build._lib, _native.BUILD_INFO, _codec.BUILD_INFO]
