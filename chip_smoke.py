@@ -1878,13 +1878,23 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
 
 
 def phase_parallel() -> None:
-    """Phase 12: ``parallel/`` on the card, NCCL at one rank per card, then
-    gloo ranks sharing the card; each rank's kernel launches recorded."""
+    """Phase 12: ``parallel/`` on the card, NCCL at world size one, then the
+    multi-rank paths: with four cards or more, NCCL ranks one per card and
+    the corpus-sharded bench across the cards; with fewer, gloo ranks that
+    share cuda:0 (NCCL refuses two ranks on one card). Each rank's kernel
+    launches are recorded."""
+    import torch
+
     t0 = time.perf_counter()
     nccl = _parallel_nccl()
-    gloo = _parallel_ranks("gloo")
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        ranks = _parallel_ranks("nccl")
+        _multicard_corpus_bench(cards)
+    else:
+        ranks = _parallel_ranks("gloo")
     log("parallel", seconds=time.perf_counter() - t0, card=_card(),
-        nccl_launches=nccl, gloo_launches=gloo)
+        cards=cards, nccl_launches=nccl, rank_launches=ranks)
 
 
 def _multicard_corpus_bench(n: int) -> None:
@@ -1925,19 +1935,6 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     phase_device()
-    if sys.argv[1:] == ["--ranks-on-cards"]:
-        # Phase 12's multi-rank paths with NCCL, one rank per card.
-        if torch.cuda.device_count() < 4:
-            print("chip_smoke: --ranks-on-cards needs 4 cards",
-                  file=sys.stderr)
-            return 2
-        _parallel_ranks("nccl")
-        _multicard_corpus_bench(torch.cuda.device_count())
-        log("done", seconds=time.perf_counter() - t0)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
     k1_rec = {"name": "luma_pass", "route": "cuda",
               "source": "spread_spectrum_watermarking_torch/csrc/luma_pass.cu",
               "replaces": "spread_spectrum_watermarking_tpu/ops/fused_dct.py:295"

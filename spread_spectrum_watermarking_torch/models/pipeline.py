@@ -143,6 +143,15 @@ def _broadcast_marks(marks: torch.Tensor, batch: int) -> torch.Tensor:
     return marks
 
 
+def _modulate(idx: torch.Tensor, original: torch.Tensor,
+              marks: torch.Tensor, config: WriteConfig) -> torch.Tensor:
+    """The new values of the ranked coefficients ``original`` at ``idx``."""
+    return modulation.embed_marks(
+        original, _broadcast_marks(marks, original.shape[0]),
+        config.insertion.method, config.insertion.alpha,
+        custom_insert=config.custom_insert, indices=idx)
+
+
 def _modulated(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fast prologue and the modulation: ``(idx, original, new)``."""
@@ -150,11 +159,7 @@ def _modulated(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig
         idx, original = _rank_and_values_fast(
             rgb, marks.shape[-1], config.ordering, config.precision,
             config.custom_ordering, config.rank_version)
-    new_values = modulation.embed_marks(
-        original, _broadcast_marks(marks, rgb.shape[0]),
-        config.insertion.method, config.insertion.alpha,
-        custom_insert=config.custom_insert, indices=idx)
-    return idx, original, new_values
+    return idx, original, _modulate(idx, original, marks, config)
 
 
 def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig,

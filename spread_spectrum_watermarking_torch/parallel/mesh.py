@@ -25,7 +25,7 @@ raises; nothing falls back to gloo or to the CPU. One further pairing is
 allowed on purpose: gloo ranks that compute on CUDA devices, which is how
 several ranks share one card (NCCL refuses two ranks on one card). gloo
 does not move CUDA tensors through every collective, so for that pairing
-(``Mesh.via_host``) each collective copies its operand into a pinned host
+(:func:`via_host`) each collective copies its operand into a pinned host
 buffer, runs on the host and copies the result back: a choice made by the
 backend, not by catching an error.
 """
@@ -94,6 +94,28 @@ def multihost_initialize(*, device="cuda", backend: Optional[str] = None,
         torch.cuda.set_device(rank_device(device))
 
 
+def via_host(device: torch.device) -> bool:
+    """Whether this rank's communication runs on pinned host copies of its
+    tensors: gloo ranks that compute on a CUDA device."""
+    return dist.get_backend() == "gloo" and device.type == "cuda"
+
+
+def to_wire(t: torch.Tensor, host: bool) -> torch.Tensor:
+    """``t`` as the backend sends it: contiguous, and with ``host`` (see
+    :func:`via_host`) a copy in pinned host memory."""
+    if not host:
+        return t.contiguous()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    return buf
+
+
+def from_wire(t: torch.Tensor, device: torch.device,
+              host: bool) -> torch.Tensor:
+    """A tensor the backend received, back on the rank's ``device``."""
+    return t.to(device) if host else t
+
+
 class Mesh:
     """The ranks of the default process group as a (data, spatial) mesh.
 
@@ -109,26 +131,13 @@ class Mesh:
         self.backend = dist.get_backend()
         self.shape: Dict[str, int] = {
             DATA_AXIS: device_mesh.size(0), SPATIAL_AXIS: device_mesh.size(1)}
-        # gloo ranks on CUDA devices: collectives run on host copies.
-        self.via_host = self.backend == "gloo" and device.type == "cuda"
+        self.via_host = via_host(device)
 
     def index(self, axis: str) -> int:
         return self.device_mesh.get_local_rank(axis)
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
-
-    def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` as the backend sends it: contiguous, and on pinned host
-        memory for :attr:`via_host`."""
-        if not self.via_host:
-            return t.contiguous()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        return host
-
-    def _back(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device) if self.via_host else t
 
     def all_to_all(self, t: torch.Tensor, split_axis: int,
                    concat_axis: int, axis: str = SPATIAL_AXIS) -> torch.Tensor:
@@ -137,26 +146,28 @@ class Mesh:
         ``j`` goes to the rank at index ``j``, and the chunks received are
         concatenated along ``concat_axis`` in the senders' order."""
         n = self.shape[axis]
-        send = self._wire(torch.stack(t.chunk(n, dim=split_axis)))
+        send = to_wire(torch.stack(t.chunk(n, dim=split_axis)),
+                       self.via_host)
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=self.group(axis))
-        return torch.cat(self._back(recv).unbind(0), dim=concat_axis)
+        recv = from_wire(recv, self.device, self.via_host)
+        return torch.cat(recv.unbind(0), dim=concat_axis)
 
     def psum(self, t: torch.Tensor, axis: str = SPATIAL_AXIS) -> torch.Tensor:
         """``lax.psum``: the elementwise sum of ``t`` over the axis's ranks."""
-        buf = (self._wire(t) if self.via_host
+        buf = (to_wire(t, True) if self.via_host
                else t.clone(memory_format=torch.contiguous_format))
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group(axis))
-        return self._back(buf)
+        return from_wire(buf, self.device, self.via_host)
 
     def all_gather(self, t: torch.Tensor,
                    axis: str = SPATIAL_AXIS) -> torch.Tensor:
         """Every rank's ``t`` on the axis, stacked in index order on a new
         leading dim."""
-        send = self._wire(t)
+        send = to_wire(t, self.via_host)
         parts = [torch.empty_like(send) for _ in range(self.shape[axis])]
         dist.all_gather(parts, send, group=self.group(axis))
-        return self._back(torch.stack(parts))
+        return from_wire(torch.stack(parts), self.device, self.via_host)
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,

@@ -37,8 +37,9 @@ import torch.distributed as dist
 from ..config import Precision, WriteConfig
 from ..kernels.embed_epilogue import embed_epilogue
 from ..models import pipeline
-from ..ops import dct, modulation
-from .mesh import _host_tensor, rank_device
+from ..ops import dct
+from .mesh import (_host_tensor, from_wire, rank_device, to_wire,
+                   via_host)
 
 STAGE_AXIS = "stage"
 N_STAGES = 3
@@ -48,8 +49,8 @@ class StageMesh:
     """Ranks 0 .. n_stages - 1 of the default group as a 1-D stage axis.
 
     ``stage`` is this rank's stage, None on a rank beyond the stages.
-    Activations move with ``isend``/``recv``; gloo ranks on CUDA devices
-    (``via_host``) send pinned host copies, as ``mesh.Mesh`` does.
+    Activations move with ``isend``/``recv``, through pinned host copies
+    where ``mesh.via_host`` says so, as ``mesh.Mesh``'s collectives do.
     """
 
     def __init__(self, n_stages: int, device: torch.device):
@@ -58,27 +59,21 @@ class StageMesh:
         self.group = dist.new_group(list(range(n_stages)))
         rank = dist.get_rank()
         self.stage: Optional[int] = rank if rank < n_stages else None
-        self.via_host = (dist.get_backend() == "gloo"
-                         and device.type == "cuda")
+        self.via_host = via_host(device)
 
     def send(self, t: torch.Tensor, stage: int):
         """Start sending ``t`` to ``stage``: ``(work, buffer)``, the buffer
         to be kept until ``work.wait()``."""
-        if self.via_host:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            buf.copy_(t)
-        else:
-            buf = t.contiguous()
+        buf = to_wire(t, self.via_host)
         return dist.isend(buf, dst=stage, group=self.group), buf
 
     def recv(self, shape, dtype, stage: int) -> torch.Tensor:
         """Receive a ``shape``/``dtype`` tensor from ``stage``."""
-        if self.via_host:
-            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-        else:
-            buf = torch.empty(shape, dtype=dtype, device=self.device)
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if self.via_host else self.device,
+                          pin_memory=self.via_host)
         dist.recv(buf, src=stage, group=self.group)
-        return buf.to(self.device)
+        return from_wire(buf, self.device, self.via_host)
 
 
 def make_stage_mesh(n_stages: int = N_STAGES, device="cuda") -> StageMesh:
@@ -98,10 +93,7 @@ def _stage1(t: torch.Tensor, marks: torch.Tensor, config: WriteConfig,
     idx, original = pipeline._rank_from_half(
         t, marks.shape[-1], config.ordering, config.custom_ordering, ax,
         config.rank_version)
-    new_values = modulation.embed_marks(
-        original, pipeline._broadcast_marks(marks, original.shape[0]),
-        config.insertion.method, config.insertion.alpha,
-        custom_insert=config.custom_insert, indices=idx)
+    new_values = pipeline._modulate(idx, original, marks, config)
     return (new_values - original).to(torch.float32), idx
 
 

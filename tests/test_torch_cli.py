@@ -408,7 +408,7 @@ def test_bench_runs_each_config_with_the_jax_cli_arguments(config, capsys):
     assert last["backend"] == "torch-cpu"
 
 
-def test_bench_corpus_sharded_exits_2_until_parallel_is_ported(capsys):
+def test_bench_corpus_sharded_runs_on_one_gloo_rank(capsys):
     # parallel/ is ported: the config runs (here on one gloo rank on the
     # CPU) and exits 0 with the JAX harness's keys.
     rc = run("bench", "--config", "corpus-sharded", "--size", "32x48",

@@ -4,7 +4,12 @@ launcher, on gloo ranks on the CPU.
 The staged embed runs in 3 ranks spawned once for the module; its output
 must be bit-equal to the port's single-device ``pipeline.embed`` per
 microbatch at DEFAULT and HIGH, with one mark and with several, as the JAX
-package's tests/test_sharded.py holds its own; HIGHEST is refused.
+package's tests/test_sharded.py holds its own; HIGHEST is refused. It is
+also held against the JAX package's ``embed_staged``, run on 3 of the test
+process's virtual CPU devices with the same inputs, at each fast tier's
+single-device parity standard (tests/test_torch_pipeline*.py): every u8
+value within one step, each mark's similarity within 0.1 sigma of JAX's,
+and the own mark above 6 sigma.
 ``dryrun_multichip(4, "cpu")``, the counterpart of the root
 ``__graft_entry__.py``'s, must pass. A rank's block of a global array is
 zero-padded only where asked. The launcher must stop a group that fails,
@@ -15,6 +20,8 @@ import math
 import os
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,7 +33,10 @@ from spread_spectrum_watermarking_torch.parallel.dryrun import (
 )
 from spread_spectrum_watermarking_torch.parallel import mesh as pmesh
 from spread_spectrum_watermarking_torch.parallel.launch import run_ranks
+from spread_spectrum_watermarking_tpu import config as jcfg
 from spread_spectrum_watermarking_tpu.bench import _pink_texture
+from spread_spectrum_watermarking_tpu.models import pipeline as jp
+from spread_spectrum_watermarking_tpu.parallel import pipeline_staged as jps
 
 M, B, H, W, N = 4, 2, 64, 96, 50
 
@@ -71,6 +81,33 @@ def test_staged_multimark_is_bit_equal_to_the_fast_path(port):
     imgs, _, marks4 = _inputs()
     np.testing.assert_array_equal(port[-1]["staged"]["runs"][2],
                                   _reference(imgs, marks4, "default"))
+
+
+@pytest.mark.parametrize("run", range(len(RUNS)))
+def test_staged_matches_jax_at_the_tier_standard(port, run):
+    # Several marks add up in the image, so each reads at about half the
+    # single-mark sigma; the own mark of such an image is their sum.
+    imgs, mark, marks4 = _inputs()
+    which, tier = RUNS[run]
+    marks = {"one": mark[None], "four": marks4}[which]
+    mesh = jps.make_stage_mesh(devices=jax.devices()[:3])
+    want = np.asarray(jps.embed_staged(
+        jnp.asarray(imgs), jnp.asarray(marks), mesh,
+        jcfg.WriteConfig(precision=jcfg.Precision(tier))))
+    got = port[-1]["staged"]["runs"][run]
+    assert got.shape == want.shape == imgs.shape
+    step = np.abs(want.astype(int) - got.astype(int))
+    assert step.max() <= 1
+    refs = torch.from_numpy(np.concatenate([marks, marks.sum(0)[None]]))
+    for i in range(M):
+        je = jp.extract(jnp.asarray(imgs[i]), jnp.asarray(want[i]), N,
+                        jcfg.ReadConfig(precision=jcfg.Precision(tier)))
+        te = tw.extract(torch.from_numpy(imgs[i]), torch.from_numpy(got[i]),
+                        N, tw.ReadConfig(precision=tw.Precision(tier)))
+        j_sims = tw.similarity(torch.from_numpy(np.array(je)), refs).numpy()
+        t_sims = tw.similarity(te, refs).numpy()
+        assert np.all(np.abs(j_sims - t_sims) <= 0.1)
+        assert np.all(t_sims[:, -1] > 6.0)
 
 
 def test_staged_returns_on_the_last_stage_only(port):
