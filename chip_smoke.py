@@ -39,8 +39,18 @@ Phases, one line of output each, any failure exits non-zero:
    bound and one ``torch.matmul`` of the dense pass;
 4c. K7 (add and quantize) bit-equal to its plain version at 48x1080x1920
    in both modes, with its times, its bound and the two-rounding form's;
+4d. K3 (the exact top-n select) index for index equal to its plain
+   version: over the main path's 48x1080x1920 bf16 plane at each ordering
+   (keys built in the kernel), over HIGHEST's int32 key plane at 48 x
+   1080p (and equal to the tiled route), on the re-sort (48, 1000) with
+   flat indices as positions, on the tiled route's (48, 32000)
+   candidates, on rows of equal keys and of int32 extremes, at n = 1 and
+   n = L on a 37x59 plane and at n = 20,000; each mode's time beside its
+   plain version's, one ``torch.topk`` on prebuilt composites and its
+   bound;
 5. the main path: ``embed_verified`` at 1080p, batch 48, n = 1000, DEFAULT
-   on 1/f textures, with the kernels' launch counts from that one call, the
+   on 1/f textures, with the kernels' launch counts from that one call
+   (K1, K4, and K3 over the plane and over the re-sort), the
    detection checks, the detect path's bit-equality, agreement with the
    CPU run of the same code on a small input, a stage breakdown,
    images/s from the port's bench harness (``bench.run_verified_bench``:
@@ -50,19 +60,20 @@ Phases, one line of output each, any failure exits non-zero:
 6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, its pair
    mode and K4 launched in the one call, K6 not;
 6b. rank generation 1 (``rank_version=1``), the same checks at DEFAULT and
-   at HIGH (K1, its high mode at HIGH, and K4 launched), its rate from the
-   harness's ``_timed_chain``;
+   at HIGH (K1, its high mode at HIGH, K4, and K3 at least twice launched),
+   its rate from the harness's ``_timed_chain``;
 6c. the custom callables on 4 x 1080p at each tier, each a reimplementation
    of a built-in held to it: Option2 as ``custom_insert`` bit for bit, its
    inverse as ``custom_extract`` within 1e-3 sigma, the ENERGY metric as
    ``custom_ordering`` (the same indices at HIGHEST, a share of at least
-   0.95 in common at the fast tiers), with the tier's kernels launched;
+   0.95 in common at the fast tiers), with the tier's kernels and K3
+   launched in every call;
 7. the fast tiers' plain-op branches on 4 x 1080p: the full inverse at
    DEFAULT and HIGH read back by the fast Reader, float input at DEFAULT,
    ``prepare_base`` at HIGH;
 8. the HIGHEST path (every config's default) at 1080p batch 48:
-   ``embed_verified`` with K6a's and K7's launch counts from that call
-   (K7 exactly once), detection,
+   ``embed_verified`` with K6a's, K7's and K3's launch counts from that
+   call (K7 exactly once), detection,
    ``extract`` bit-equal to its extraction and ``extract_prepared`` within
    0.01 sigma of it, ``embed(sparse_idct=False)`` with K6b's launch count,
    the CPU agreement check, Writer/Reader/Tester on one image, a stage
@@ -105,8 +116,12 @@ Phases, one line of output each, any failure exits non-zero:
    rows zero, within one step on under 10%, 99% of values within 5e-2
    of the single-device read), the staged embed on 3 ranks bit-equal at
    DEFAULT and HIGH (HIGHEST refused), and ``dryrun_multichip(4,
-   "cuda")``; every rank's kernel launches are recorded and K1, K4, K6a
-   and K7 must have launched inside ranks.
+   "cuda")``; every rank's kernel launches are recorded and K1, K4, K6a,
+   K7 and K3 must have launched inside the DP ranks, K3 in the spatial and
+   corpus ranks (and the NCCL paths), and in the staged embed each run's
+   own counts must show K1's single mode (DEFAULT) or its high mode (HIGH)
+   on stage 0 and not the other, K3's plane mode on stage 1, K4 on
+   stage 2.
 
 The device line also reports, for information only, which of PIL, the
 libjpeg and libpng headers, ``Python.h`` and ``g++`` the machine has (the
@@ -131,6 +146,9 @@ import numpy as np
 
 N = 1000
 SIGMA = 6.0
+# Rounds of each stage breakdown kept after a warm-up round; the median is
+# logged.
+STAGE_ROUNDS = 3
 # K1 tolerance against its plain version, per element: one bf16 ulp of the
 # larger value, plus twice the worst-case error of summing K f32 terms in
 # another order, 2 * K * 2^-24 * sum_k |C y| (Higham's gamma_K bound for
@@ -814,6 +832,161 @@ def phase_k7() -> dict:
             "bound_ms": fields["u8_bound_ms"], "bound_by": fields["u8_bound_by"]}
 
 
+def _k3_check(tag: str, got, want, **fields) -> None:
+    """K3's outputs index for index equal to its plain version's; logs,
+    raises where they differ."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    log("k3", case=tag, index_equal=equal, **fields)
+    if not equal:
+        raise AssertionError(f"K3 {tag}: differs from its plain version")
+
+
+def _composite_topk(key, pos=None):
+    """``fn()``: one ``torch.topk`` over K3's int64 composites, built
+    beforehand (the library call the kernel is timed against)."""
+    import torch
+
+    if pos is None:
+        pos = torch.arange(key.shape[-1], device=key.device)
+    comp = (key.to(torch.int64) << 32) | (2 ** 31 - 1 - pos)
+    return lambda: torch.topk(comp, N, dim=-1, sorted=True)
+
+
+def phase_k3() -> tuple[dict, dict]:
+    """K3 index for index against its plain version on the card: its plane
+    mode on the main path's 48 x 1080 x 1920 bf16 plane at each ordering;
+    its key mode on HIGHEST's int32 key plane (48 x 1080p, also against
+    the tiled route), on the re-sort (48, n) with the selected flat indices
+    as positions and on the tiled route's (48, 32 n) tile-ordered
+    candidates; a row of equal keys (positions along the row and
+    permuted), int32 extremes, n = 1 and n = L on a 37 x 59 plane and
+    n = 20,000 (the global-memory sort), both modes. Then each mode's time
+    at the main path's shapes (and at HIGHEST's plane) beside its plain
+    version's, one ``torch.topk`` on prebuilt composites and its bound
+    (one read of the input, one write of the output): the records of
+    ``topk_select`` and ``topk_select_plane``."""
+    import torch
+
+    from spread_spectrum_watermarking_torch import Ordering, Precision
+    from spread_spectrum_watermarking_torch.kernels import topk_select as k3
+    from spread_spectrum_watermarking_torch.models import pipeline as tp
+    from spread_spectrum_watermarking_torch.ops import colorspace, dct, ranking
+
+    def plane_of(rgb):
+        ax = dct.shorter_axis(rgb.shape[1], rgb.shape[2])
+        return tp._second_pass(tp._half_pass(rgb, Precision.DEFAULT), ax)
+
+    plane = plane_of(textures(30, 48, 1080, 1920))  # the main path's
+    shape = list(plane.shape)
+    for o in Ordering:
+        _k3_check(f"plane_{o.value}", k3.top_of_plane(plane, N, o),
+                  k3.top_of_plane_reference(plane, N, o), shape=shape, n=N)
+    energy = Ordering.ENERGY
+    idx, kv = k3.top_of_plane(plane, N, energy)
+    order_key = torch.where(idx == 0, ranking._DC_KEY, kv & 0xFFFE)
+    _k3_check("resort", k3.top_by_key(order_key, idx, N),
+              k3.top_by_key_reference(order_key, idx, N), shape=[48, N], n=N)
+    _k3_check("plane_n_20000", k3.top_of_plane(plane[:8], 20000, energy),
+              k3.top_of_plane_reference(plane[:8], 20000, energy),
+              shape=[8, 1080, 1920], n=20000)
+    b, h, w = plane.shape
+    times = {
+        "plane_ms": time_ms(lambda: k3.top_of_plane(plane, N, energy), 20),
+        "plane_plain_ms": time_ms(
+            lambda: k3.top_of_plane_reference(plane, N, energy), 5),
+        "plane_library_ms": time_ms(
+            _composite_topk(k3.plane_keys(plane, energy)), 5),
+        "resort_ms": time_ms(lambda: k3.top_by_key(order_key, idx, N), 20),
+        "resort_plain_ms": time_ms(
+            lambda: k3.top_by_key_reference(order_key, idx, N), 20),
+        "resort_library_ms": time_ms(_composite_topk(order_key, idx), 20)}
+    # Bytes: the input read once (bf16 plane; int32 keys and int64
+    # positions), the int64 positions (and the plane mode's int32 keys)
+    # written once. The few integer operations an element are not counted.
+    bounds = {"plane": bound(0, 2 * plane.numel() + 12 * b * N, BF16_PEAK),
+              "resort": bound(0, 12 * b * N + 8 * b * N, BF16_PEAK)}
+    del plane, idx, kv, order_key
+    torch.cuda.empty_cache()
+
+    small = plane_of(textures(31, 2, 37, 59))
+    size = 37 * 59
+    for o in Ordering:
+        for n in (1, size):
+            _k3_check(f"plane_37x59_{o.value}_n{n}",
+                      k3.top_of_plane(small, n, o),
+                      k3.top_of_plane_reference(small, n, o), n=n)
+    small_key = k3.plane_keys(small, energy)
+    for n in (1, size):
+        _k3_check(f"keys_37x59_n{n}", k3.top_by_key(small_key, None, n),
+                  k3.top_by_key_reference(small_key, None, n), n=n)
+
+    # HIGHEST's key plane, from its own path's pieces (K6a on the luma).
+    c = dct.dct2_2d(colorspace.luma(textures(60, 48, 1080, 1920)))
+    key = ranking._f32_key(ranking.ranking_metric(c, energy).reshape(
+        48, -1).contiguous())
+    del c
+    key[..., 0] = ranking._NEG_INF_KEY
+    tiled = ranking._tiled_top(key, N, 32)
+    got = k3.top_by_key(key, None, N)
+    _k3_check("highest_keys", got, k3.top_by_key_reference(key, None, N),
+              shape=list(key.shape), n=N)
+    _k3_check("highest_keys_vs_tiled_route", got, tiled, n=N)
+    _k3_check("highest_keys_n_20000", k3.top_by_key(key[:8], None, 20000),
+              k3.top_by_key_reference(key[:8], None, 20000), n=20000)
+    # The tiled route's candidates: the n tiles of 32 its recursion picks.
+    tiles = key.reshape(48, -1, 32)
+    tile_ids = ranking._tiled_top(tiles.amax(-1), N, 32)
+    cand = ranking._zeros_tie(torch.gather(
+        tiles, 1, tile_ids[..., None].expand(48, N, 32)).reshape(48, -1))
+    cand_idx = (tile_ids[..., None] * 32
+                + torch.arange(32, device="cuda")).reshape(48, -1)
+    _k3_check("tiled_candidates", k3.top_by_key(cand, cand_idx, N),
+              k3.top_by_key_reference(cand, cand_idx, N),
+              shape=list(cand.shape), n=N)
+    times.update({
+        "highest_keys_ms": time_ms(lambda: k3.top_by_key(key, None, N), 20),
+        "highest_keys_plain_ms": time_ms(
+            lambda: k3.top_by_key_reference(key, None, N), 5),
+        "highest_keys_library_ms": time_ms(_composite_topk(key), 5),
+        "highest_tiled_route_ms": time_ms(
+            lambda: ranking._tiled_top(key, N, 32), 5)})
+    bounds["highest_keys"] = bound(0, 4 * key.numel() + 8 * 48 * N,
+                                   BF16_PEAK)
+    del key, tiles, cand, cand_idx
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    equal = torch.full((4, 1_000_000), 7, dtype=torch.int32, device="cuda")
+    perm = torch.stack([torch.randperm(1_000_000, generator=gen,
+                                       device="cuda") for _ in range(4)])
+    _k3_check("equal_keys", k3.top_by_key(equal, None, N),
+              k3.top_by_key_reference(equal, None, N), shape=[4, 1_000_000])
+    _k3_check("equal_keys_permuted_pos", k3.top_by_key(equal, perm * 3 + 1, N),
+              k3.top_by_key_reference(equal, perm * 3 + 1, N),
+              shape=[4, 1_000_000])
+    ends = torch.tensor([-2 ** 31, -2 ** 31 + 1, -1, 0, 1, 2 ** 31 - 2,
+                         2 ** 31 - 1], dtype=torch.int32, device="cuda")
+    extremes = ends[torch.randint(0, 7, (4, 1_000_000), generator=gen,
+                                  device="cuda")]
+    _k3_check("int32_extremes", k3.top_by_key(extremes, None, N),
+              k3.top_by_key_reference(extremes, None, N),
+              shape=[4, 1_000_000])
+    log("k3_time", card=_card(), shape=shape, n=N, **times,
+        **{f"{name}_{k}": v for name, bd in bounds.items()
+           for k, v in bd.items()})
+    return ({"max_abs_err": 0, "ms": times["resort_ms"],
+             "plain_ms": times["resort_plain_ms"],
+             "library_ms": times["resort_library_ms"], **bounds["resort"]},
+            {"max_abs_err": 0, "ms": times["plane_ms"],
+             "plain_ms": times["plane_plain_ms"],
+             "library_ms": times["plane_library_ms"], **bounds["plane"]})
+
+
 def _check_detection(tag: str, ext, marks, gen) -> dict:
     import torch
 
@@ -915,8 +1088,8 @@ def _device_profile(rgb, marks, cfg, calls: int = 3) -> dict:
 
 
 def _stage_timer(stages: dict):
-    """``run(name, fn)``: calls ``fn``, records its ms in ``stages`` (CUDA
-    events around it, then a sync) and returns its result."""
+    """``run(name, fn)``: calls ``fn``, appends its ms to ``stages[name]``
+    (CUDA events around it, then a sync) and returns its result."""
     import torch
 
     def run(name, fn):
@@ -926,14 +1099,21 @@ def _stage_timer(stages: dict):
         out = fn()
         end.record()
         torch.cuda.synchronize()
-        stages[name] = start.elapsed_time(end)
+        stages.setdefault(name, []).append(start.elapsed_time(end))
         return out
     return run
 
 
+def _median_stages(stages: dict) -> dict:
+    """Each stage's median ms over the rounds after the first (a warm-up):
+    one round's host hiccup does not make a stage's number."""
+    return {k: float(np.median(v[1:])) for k, v in stages.items()}
+
+
 def _stage_breakdown(rgb, marks, cfg) -> dict:
     """ms per stage of one fast-tier embed_verified call, CUDA events
-    around each. The read tail runs at DEFAULT at both fast tiers."""
+    around each, the median of ``STAGE_ROUNDS`` rounds. The read tail runs
+    at DEFAULT at both fast tiers."""
     from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels.embed_epilogue import (
         embed_epilogue)
@@ -949,7 +1129,7 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
 
     first = "k1_high_first_pass" if cfg.precision is Precision.HIGH \
         else "k1_first_pass"
-    for _ in range(2):  # the first round warms up; the second is kept
+    for _ in range(STAGE_ROUNDS + 1):  # the first round warms up
         box["t"] = run(first, lambda: luma_pass(rgb, None, cfg.precision))
         box["plane"] = run("second_pass", lambda: tp._second_pass(box["t"], ax))
         box["iv"] = run("select", lambda: ranking.approx_top_indices(
@@ -964,7 +1144,7 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
                         lambda: luma_pass(box["marked"], rgb))
         run("read_dot_at", lambda: dct.dct2_dot_at(
             box["td"], idx, contracted_axis=ax, precision=Precision.DEFAULT))
-    return stages
+    return _median_stages(stages)
 
 
 def _kernel_counts() -> dict:
@@ -984,8 +1164,9 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
     """One fast tier's path at 1080p batch 48 and rank generation
     ``rank_version``: ``embed_verified`` with the launch counts of that one
     call (DEFAULT: K1 and K4; HIGH: K1's high mode, its pair mode and K4;
-    never K6), then the checks, the stages, the rate (the harness's chains
-    of ``iters`` calls) and the profile. ``recs``: the kernel records to
+    never K6; K3 over the plane and over the re-sort at generation 2, twice
+    over keys at generation 1), then the checks, the stages, the rate (the
+    harness's chains of ``iters`` calls) and the profile. ``recs``: the kernel records to
     fill with the main path's launches (None for generation 1)."""
     import torch
 
@@ -1016,6 +1197,14 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
             recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
             recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
             recs["embed_epilogue"]["launches"] = counts["k4"]
+            recs["topk_select"]["launches"] = counts["k3"]
+            recs["topk_select_plane"]["launches"] = counts["k3_plane"]
+    # K3: generation 2 selects over the plane, then re-sorts; generation 1
+    # selects over its keys, then re-sorts.
+    if rank_version == 2:
+        ran = ran and counts["k3_plane"] >= 1 and counts["k3"] >= 1
+    else:
+        ran = ran and counts["k3"] >= 2
     if not ran or any(counts[k] for k in ("k6a", "k6b", "k1f", "k1f_high",
                                           "k7")):
         raise AssertionError(f"{precision.value} path launched {counts}")
@@ -1104,7 +1293,7 @@ def phase_custom() -> None:
     a built-in and held to it, with the launch counts of each call: the
     fast tiers' embed runs K1 and K4 (K1's high mode at HIGH) and their
     read K1 and its pair mode; HIGHEST's embed K6a and K7 once, its read
-    K6a."""
+    K6a; every call K3."""
     import torch
 
     import spread_spectrum_watermarking_torch as wm
@@ -1124,6 +1313,8 @@ def phase_custom() -> None:
         return out, _kernel_counts()
 
     def launched(counts, fast: bool, write: bool, high: bool) -> bool:
+        if counts["k3"] < 1:
+            return False
         if not fast:
             return counts["k6a"] > 0 and (counts["k7"] == 1 or not write)
         first = (counts["k1_high"] if high
@@ -1206,7 +1397,8 @@ def phase_bench() -> None:
 
 def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
     """ms per stage of one HIGHEST embed_verified call (its sparse embed,
-    then its read), CUDA events around each."""
+    then its read), CUDA events around each, the median of
+    ``STAGE_ROUNDS`` rounds."""
     import torch
 
     from spread_spectrum_watermarking_torch.kernels.add_quantize import (
@@ -1220,7 +1412,7 @@ def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
     box = {}
     run = _stage_timer(stages)
     ie = cfg.insertion
-    for _ in range(2):  # the first round warms up; the second is kept
+    for _ in range(STAGE_ROUNDS + 1):  # the first round warms up
         y = run("luma", lambda: colorspace.luma(rgb))
         box["c"] = run("k6a_forward", lambda: dct.dct2_2d(y))
         box["idx"] = run("select", lambda: ranking.top_indices(
@@ -1237,7 +1429,7 @@ def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
                        lambda: add_quantize(rgb, box["dy"], True))
         yd = run("derived_luma", lambda: colorspace.luma(box["m"]))
         run("coeffs_at", lambda: dct.dct2_coeffs_at(yd, idx))
-    return stages
+    return _median_stages(stages)
 
 
 def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
@@ -1258,7 +1450,7 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
     counts = _kernel_counts()
     k6a_rec["launches"] = counts["k6a"]
     k7_rec["launches"] = counts["k7"]
-    if counts["k6a"] == 0 or counts["k7"] != 1:
+    if counts["k6a"] == 0 or counts["k7"] != 1 or counts["k3"] == 0:
         raise AssertionError(f"the HIGHEST path launched {counts}")
     det = _check_detection("1080p HIGHEST", ext, marks, gen)
     if marked.shape != rgb.shape or marked.dtype != torch.uint8:
@@ -1681,8 +1873,9 @@ def _parallel_nccl() -> dict:
             (48, 1, N)).astype(np.float32)
         rgb_dev, marks_dev = torch.from_numpy(rgb).cuda(), \
             torch.from_numpy(marks).cuda()
-        for p, names in ((wm.Precision.DEFAULT, ("k1", "k1_pair", "k4")),
-                         (wm.Precision.HIGHEST, ("k6a", "k7"))):
+        for p, names in ((wm.Precision.DEFAULT, ("k1", "k1_pair", "k4",
+                                                  "k3_plane", "k3")),
+                         (wm.Precision.HIGHEST, ("k6a", "k7", "k3"))):
             cfg, rcfg = wm.WriteConfig(precision=p), wm.ReadConfig(precision=p)
             _zero_kernel_counts()
             t0 = time.perf_counter()
@@ -1727,6 +1920,7 @@ def _parallel_nccl() -> dict:
         log("parallel_nccl_spatial", **rec)
         if step > 1 or share >= 0.02 or own <= SIGMA:
             raise AssertionError(f"NCCL spatial: {rec}")
+        _need_launches("NCCL spatial", counts, ("k3",))
         del marked, want
         torch.cuda.empty_cache()
 
@@ -1742,7 +1936,7 @@ def _parallel_nccl() -> dict:
                 and res["max_cross_mark_sigma"] < SIGMA
                 and res["comm_backend"] == "nccl"):
             raise AssertionError(f"corpus-sharded bench: {res}")
-        _need_launches("corpus-sharded bench", counts, ("k7",))
+        _need_launches("corpus-sharded bench", counts, ("k7", "k3"))
         out["corpus_bench"] = counts
         log("parallel_corpus_breakdown", card=_card(),
             ms=_corpus_breakdown(mesh))
@@ -1809,8 +2003,11 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
             raise AssertionError(f"{backend} DP {prec} differs from one device")
     for r, counts in enumerate(launches):
         _need_launches(f"{backend} DP rank {r}", counts["dp"],
-                       ("k1", "k4", "k6a", "k7"))
-        _need_launches(f"{backend} corpus rank {r}", counts["corpus"], ("k7",))
+                       ("k1", "k4", "k6a", "k7", "k3_plane", "k3"))
+        _need_launches(f"{backend} spatial rank {r}", counts["spatial"],
+                       ("k3",))
+        _need_launches(f"{backend} corpus rank {r}", counts["corpus"],
+                       ("k7", "k3"))
 
     for i, ((shape, img), m) in enumerate(zip(sp, sp_marks)):
         got = r0["spatial"][i]
@@ -1861,15 +2058,27 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
         equal = bool(np.array_equal(staged[-1]["staged"]["runs"][k], ref))
         log(f"parallel_{backend}_staged", precision=prec, shape=list(mbs.shape),
             bit_equal=equal,
-            launches=[r["launches"]["staged"] for r in staged])
+            launches=[r["staged"]["run_launches"][k] for r in staged])
         if not equal:
             raise AssertionError(f"{backend} staged {prec} != pipeline.embed")
     if not all(r["staged"]["highest_raises"] for r in staged):
         raise AssertionError(f"{backend} staged: HIGHEST was not refused")
-    _need_launches("staged stage 0", staged[0]["launches"]["staged"],
-                   ("k1", "k1_high"))
-    _need_launches("staged stage 2", staged[2]["launches"]["staged"], ("k4",))
-    out["staged_launches"] = [r["launches"]["staged"] for r in staged]
+    # Each run's own counts: DEFAULT's first pass is K1's single mode and
+    # HIGH's its high mode, never the other; the select on stage 1, K4 on
+    # stage 2.
+    for k, (_, prec) in enumerate(runs):
+        per_stage = [r["staged"]["run_launches"][k] for r in staged]
+        first, other = ("k1", "k1_high") if prec == "default" \
+            else ("k1_high", "k1")
+        _need_launches(f"staged {prec} stage 0", per_stage[0], (first,))
+        if per_stage[0][other]:
+            raise AssertionError(f"staged {prec} stage 0 launched {other}: "
+                                 f"{per_stage[0]}")
+        _need_launches(f"staged {prec} stage 1", per_stage[1],
+                       ("k3_plane", "k3"))
+        _need_launches(f"staged {prec} stage 2", per_stage[2], ("k4",))
+    out["staged_run_launches"] = [r["staged"]["run_launches"]
+                                  for r in staged]
 
     t0 = time.perf_counter()
     dry = dryrun.dryrun_multichip(4, "cuda", backend=backend, timeout=300)
@@ -1981,7 +2190,18 @@ def main() -> int:
                           " (an XLA fusion; no pallas_call)"}
     k7_rec.update(phase_k7())
     torch.cuda.empty_cache()
-    recs = {r["name"]: r for r in (k1_rec, k1p_rec, k1h_rec, k4_rec)}
+    k3_src = "spread_spectrum_watermarking_torch/csrc/topk_select.cu"
+    k3_tpu = ("spread_spectrum_watermarking_tpu/ops/ranking.py:274 "
+              "(lax.approx_max_k → PartialReduce; no pallas_call)")
+    k3_rec = {"name": "topk_select", "route": "cuda", "source": k3_src,
+              "replaces": k3_tpu}
+    k3p_rec = dict(k3_rec, name="topk_select_plane")
+    k3_keys, k3_plane = phase_k3()
+    k3_rec.update(k3_keys)
+    k3p_rec.update(k3_plane)
+    torch.cuda.empty_cache()
+    recs = {r["name"]: r for r in (k1_rec, k1p_rec, k1h_rec, k4_rec, k3_rec,
+                                   k3p_rec)}
     phase_fast_path(wm.Precision.DEFAULT, recs)
     torch.cuda.empty_cache()
     phase_fast_path(wm.Precision.HIGH, recs)
@@ -2009,7 +2229,8 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
                                   (k1_rec, k1p_rec, k1h_rec, k4_rec, k6a_rec,
-                                   k6b_rec, k1f_rec, k1fh_rec, k7_rec)]}))
+                                   k6b_rec, k1f_rec, k1fh_rec, k7_rec,
+                                   k3_rec, k3p_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

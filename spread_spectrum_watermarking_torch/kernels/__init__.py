@@ -10,7 +10,7 @@ them to 0.
 
 def _modules():
     from . import add_quantize, dct2d_fused, embed_epilogue, fold_pass
-    from . import luma_pass
+    from . import luma_pass, topk_select
 
     return {"k1": (luma_pass, "LAUNCHES"), "k1_pair": (luma_pass,
                                                        "PAIR_LAUNCHES"),
@@ -20,13 +20,15 @@ def _modules():
             "k6b": (dct2d_fused, "INVERSE_LAUNCHES"),
             "k1f": (fold_pass, "LAUNCHES"),
             "k1f_high": (fold_pass, "HIGH_LAUNCHES"),
-            "k7": (add_quantize, "LAUNCHES")}
+            "k7": (add_quantize, "LAUNCHES"),
+            "k3": (topk_select, "LAUNCHES"),
+            "k3_plane": (topk_select, "PLANE_LAUNCHES")}
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count in this process, by its short name
     (``k1``, ``k1_pair``, ``k1_high``, ``k4``, ``k6a``, ``k6b``, ``k1f``,
-    ``k1f_high``, ``k7``)."""
+    ``k1f_high``, ``k7``, ``k3``, ``k3_plane``)."""
     return {k: getattr(m, a) for k, (m, a) in _modules().items()}
 
 

@@ -25,8 +25,7 @@ import numpy as np
 import torch
 
 from ..config import Ordering
-
-_IDX_MAX = 2 ** 31 - 1
+from ..kernels import topk_select
 
 
 @functools.lru_cache(maxsize=64)
@@ -58,13 +57,14 @@ def _bits16(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16).to(torch.int32) & 0xFFFF
 
 
-def _top_by_key(key: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
+def _top_by_key(key: torch.Tensor, pos: torch.Tensor | None,
+                n: int) -> torch.Tensor:
     """Positions (along the last axis) of the n largest int32 ``key``s,
-    ordered by (key desc, ``pos`` asc), ``pos`` being the flat indices. One
-    unique int64 composite per element makes ``torch.topk`` (not tie-stable
-    by itself) deterministic."""
-    comp = (key.to(torch.int64) << 32) | (_IDX_MAX - pos)
-    return torch.topk(comp, n, dim=-1, sorted=True).indices
+    ordered by (key desc, ``pos`` asc), ``pos`` the flat indices (None: the
+    positions themselves): K3's :func:`topk_select.top_by_key`, whose
+    plain version selects on unique int64 composites."""
+    return topk_select.top_by_key(
+        key.contiguous(), None if pos is None else pos.contiguous(), n)
 
 
 def _bf16_key(x: torch.Tensor) -> torch.Tensor:
@@ -98,8 +98,7 @@ def _select_and_resort(keys: torch.Tensor, flat_c: torch.Tensor, n: int,
     re-sort by (f32 metric desc, index asc), DC last, with -0.0 and +0.0
     equal as in ``lax.sort``: ``(indices, values)``."""
     keys[..., 0] = _DC_KEY
-    pos = torch.arange(keys.shape[-1], device=keys.device, dtype=torch.int64)
-    idx = _top_by_key(keys, pos, n)
+    idx = _top_by_key(keys, None, n)
     cand_c = torch.gather(flat_c, -1, idx).to(torch.float32)
     cand_m = torch.where(idx == 0, -float("inf"),
                          metric_at(idx, cand_c).to(torch.float32))
@@ -150,23 +149,7 @@ def approx_top_indices(
         keys = _bf16_key(m.to(torch.bfloat16).reshape(flat_c.shape))
         return _select_and_resort(
             keys, flat_c, n, lambda i, v: _metric_at(v, i, h, w, ordering))
-    if ordering == Ordering.ENERGY:
-        scaled = flat_c
-    else:
-        scale = _flat_scale(h, w, flat_c.device).to(torch.bfloat16)
-        scaled = flat_c * scale
-
-    if ordering == Ordering.LEGACY:
-        key = _bf16_key(scaled)
-    elif ordering in (Ordering.ENERGY, Ordering.ENERGY_ORTHOGONAL):
-        sgn = torch.signbit(scaled).to(torch.int32)
-        key = (_bits16(torch.abs(scaled)) & 0xFFFE) | sgn
-    else:
-        raise ValueError(f"unknown ordering {ordering}")
-    key[..., 0] = _DC_KEY
-    pos = torch.arange(h * w, device=key.device, dtype=torch.int64)
-    idx = _top_by_key(key, pos, n)
-    kv = torch.gather(key, -1, idx)
+    idx, kv = topk_select.top_of_plane(coeffs.contiguous(), n, ordering)
 
     if ordering == Ordering.LEGACY:
         order_key = kv
@@ -242,8 +225,7 @@ def _tiled_top(key: torch.Tensor, n: int, tile: int) -> torch.Tensor:
     if t >= n * tile:
         tile_ids = _tiled_top(maxes, n, tile)
     else:
-        pos = torch.arange(t, device=key.device, dtype=torch.int64)
-        tile_ids = _top_by_key(maxes, pos, n)
+        tile_ids = _top_by_key(maxes, None, n)
     cand = torch.gather(tiles, -2, tile_ids[..., None].expand(
         *tile_ids.shape, tile)).reshape(*tile_ids.shape[:-1], n * tile)
     offs = torch.arange(tile, device=key.device, dtype=torch.int64)
@@ -258,10 +240,11 @@ def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
     plane (..., H, W), DC excluded (reference src/algorithm.rs:200-210).
 
     Exact, with the reference's order: metric descending, then index
-    ascending. Selected through int64 composites of order-preserving keys
-    (as :func:`approx_top_indices`), and, like the JAX package, by one
-    ``top_k`` over the plane when it is small (size < 4 n 32, or
-    ``exact_only``) and by its tiled selection otherwise. The two differ
+    ascending. Selected by K3 (``kernels.topk_select.top_by_key``) on
+    order-preserving keys, and, like the JAX package, by one select over
+    the plane when it is small (size < 4 n 32, or ``exact_only``) and by
+    its tiled selection otherwise; on the card ENERGY and ENERGY_ORTHOGONAL
+    take the one select at every size, the same function. The two differ
     only in how -0.0 meets +0.0, which LEGACY's signed metric can hold:
     ``lax.top_k`` ranks +0.0 first, the tiled path's final ``lax.sort``
     ranks them as equal; the port reproduces both.
@@ -281,7 +264,13 @@ def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
     key = _f32_key(metric.to(torch.float32).reshape(*lead, size).contiguous())
     key[..., 0] = _NEG_INF_KEY  # DC, as the JAX package's -inf
     tile = 32
-    if exact_only or size < 4 * n * tile:
-        pos = torch.arange(size, device=key.device, dtype=torch.int64)
-        return _top_by_key(key, pos, n)
+    # On the card, one select over the plane wherever it is the tiled
+    # route's function: the built-in squares hold no -0.0, so _zeros_tie is
+    # the identity there, and the JAX package's _tiled_exact_top_k
+    # docstring (ranking.py:109-131) proves the tiled route equal to the
+    # exact (metric desc, index asc) top-n. On the CPU each route is JAX's.
+    single = (key.device.type == "cuda" and custom_metric is None
+              and ordering in (Ordering.ENERGY, Ordering.ENERGY_ORTHOGONAL))
+    if exact_only or size < 4 * n * tile or single:
+        return _top_by_key(key, None, n)
     return _tiled_top(key, n, tile)

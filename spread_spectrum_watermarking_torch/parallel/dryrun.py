@@ -201,11 +201,15 @@ def _corpus_case(spec, device):
 
 def _staged_case(spec, device):
     mesh = make_stage_mesh(device=device)
-    out = {"runs": []}
+    out = {"runs": [], "run_launches": []}
     for marks, prec in spec["runs"]:
         wcfg, _ = _cfgs(prec)
+        kernels.reset_launch_counts()
         res = embed_staged(spec["images"], marks, mesh, wcfg)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
         out["runs"].append(None if res is None else _np(res))
+        out["run_launches"].append(kernels.launch_counts())
     try:
         embed_staged(spec["images"], spec["runs"][0][0], mesh,
                      WriteConfig(precision=Precision.HIGHEST))
@@ -226,7 +230,8 @@ def parity_rank(cases: dict, device="cuda") -> dict:
     ``dp``, ``spatial``, ``rows``, ``corpus``, ``staged``, ``dryrun``) on
     the inputs given there; return each path's global results as numpy
     (the staged outputs on the last stage only) and, under ``launches``,
-    the kernel launches each path made on this rank."""
+    the kernel launches each path made on this rank (the staged path's
+    also per run, under its ``run_launches``)."""
     out: dict = {"launches": {}}
     for name, spec in cases.items():
         kernels.reset_launch_counts()

@@ -7,12 +7,12 @@ rank), and a final top-n over them is exact, because the global top-n is
 a subset of the union of the per-rank top-n.
 
 Ties follow the single-device ``ops.ranking.top_indices``: metric
-descending, then global index ascending. ``torch.topk`` promises no order
-among equal values, so both stages select on the port's unique composite
-keys (``ranking._top_by_key``): locally on the f32 metric's total order
-with the local position as the tie break (``lax.top_k``'s rule), finally
-on (metric desc, global index asc) with -0.0 equal to +0.0, as the JAX
-package's final ``lexsort`` compares them.
+descending, then global index ascending. Both stages select through
+``ranking._top_by_key`` (K3 on the card), which breaks ties by a position:
+locally on the f32 metric's total order with the local position as the
+tie break (``lax.top_k``'s rule), finally on (metric desc, global index
+asc) with -0.0 equal to +0.0, as the JAX package's final ``lexsort``
+compares them.
 """
 
 from __future__ import annotations
@@ -99,8 +99,7 @@ def distributed_top_indices(
     key = torch.where(keep, key, ranking._NEG_INF_KEY)
 
     k_local = min(n, h * wb)
-    pos = torch.arange(h * wb, device=key.device)
-    li = ranking._top_by_key(key, pos, k_local)
+    li = ranking._top_by_key(key, None, k_local)
     lv = torch.gather(key, -1, li)
     lgi = gidx[li]
 

@@ -16,8 +16,9 @@ from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+from spread_spectrum_watermarking_torch.kernels import topk_select as k3
 from spread_spectrum_watermarking_torch.models import pipeline as tp
-from spread_spectrum_watermarking_torch.ops import colorspace, dct
+from spread_spectrum_watermarking_torch.ops import colorspace, dct, ranking
 
 pytestmark = pytest.mark.cuda
 
@@ -487,3 +488,167 @@ def test_fold_pass_f64_error_no_worse_than_before(cuda):
             err = k1f.f64_error(k1f.fold_pass(x, axis, precision=p), x, axis,
                                 p)
             assert err <= PRE_WGMMA_F64_ERR[(p.value, axis)], (p, axis, err)
+
+
+def _k3_keys(name, rng):
+    """K3's mode (A) traps: (key int32, pos int64 or None, n), on the CPU."""
+    i32 = np.iinfo(np.int32)
+    if name == "full_range":
+        key = rng.integers(i32.min, i32.max, (3, 50000), endpoint=True)
+        return key.astype(np.int32), None, 300
+    if name == "f32_total_order":
+        x = rng.standard_normal((2, 100003)).astype(np.float32)
+        x[:, ::7] = -0.0
+        x[:, 1::7] = 0.0
+        bits = x.view(np.int32)
+        return np.where(bits < 0, bits ^ 0x7FFFFFFF, bits), None, 2500
+    if name == "extremes":
+        vals = np.array([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1,
+                         i32.max], np.int32)
+        return vals[rng.integers(0, 7, (2, 30001))], None, 1000
+    if name == "equal_row":
+        return np.full((2, 100000), 7, np.int32), None, 2000
+    if name == "equal_row_permuted_pos":
+        pos = np.stack([rng.permutation(100000) for _ in range(2)])
+        return np.full((2, 100000), -3, np.int32), pos * 1000 + 11, 1500
+    if name == "n_is_one":
+        return rng.integers(-5, 5, (4, 77777)).astype(np.int32), None, 1
+    if name == "n_is_length":
+        return rng.integers(-5, 5, (4, 2183)).astype(np.int32), None, 2183
+    if name == "batch_dims":
+        return rng.integers(-20, 20, (2, 3, 5001)).astype(np.int32), None, 100
+    if name == "resort":  # (48, n) with the selected flat indices as pos
+        pos = np.stack([rng.choice(2073600, 1000, replace=False)
+                        for _ in range(48)])
+        return rng.integers(0, 300, (48, 1000)).astype(np.int32), pos, 1000
+    if name == "tiled_candidates":  # tile-ordered candidates, per row
+        tiles = np.stack([rng.choice(64800, 1000, replace=False)
+                          for _ in range(4)])
+        pos = (tiles[..., None] * 32 + np.arange(32)).reshape(4, 32000)
+        return rng.integers(0, 99, (4, 32000)).astype(np.int32), pos, 1000
+    if name == "shared_pos":
+        return (rng.integers(0, 9, (3, 40960)).astype(np.int32),
+                rng.permutation(2 ** 31 - 1 - np.arange(40960)), 500)
+    if name == "global_sort":  # n above the 16,384 the shared sort holds
+        return rng.integers(-3000, 3000, (2, 300001)).astype(np.int32), \
+            None, 20000
+    raise KeyError(name)
+
+
+K3_CASES = ["full_range", "f32_total_order", "extremes", "equal_row",
+            "equal_row_permuted_pos", "n_is_one", "n_is_length",
+            "batch_dims", "resort", "tiled_candidates", "shared_pos",
+            "global_sort"]
+
+
+@pytest.mark.parametrize("name", K3_CASES)
+def test_top_by_key_kernel_matches_plain(cuda, name):
+    key, pos, n = _k3_keys(name, np.random.default_rng(K3_CASES.index(name)))
+    key = torch.from_numpy(np.ascontiguousarray(key)).to(cuda)
+    if pos is not None:
+        pos = torch.from_numpy(np.ascontiguousarray(pos)).to(cuda)
+    before = k3.LAUNCHES
+    got = k3.top_by_key(key, pos, n)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == before + 1
+    assert torch.equal(got, k3.top_by_key_reference(key, pos, n))
+    # Keys that start 4 bytes into their storage take the scalar loads.
+    assert torch.equal(k3.top_by_key(_one_word_in(key), pos, n), got)
+
+
+def _one_word_in(x):
+    """A contiguous copy of ``x`` that starts one element into its
+    storage: not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _tied_plane(seed, b, h, w, device):
+    """A bf16 plane with a 1/f-like falloff, many ties, both signed zeros
+    and a large DC."""
+    rng = np.random.default_rng(seed)
+    f = np.sqrt(np.arange(h)[:, None] ** 2 + np.arange(w)[None, :] ** 2) + 1
+    x = rng.standard_normal((b, h, w)) * 40 / f
+    x = np.round(x * 64) / 64
+    m = rng.random((b, h, w))
+    x[m < 0.1] = 0.0
+    x[(m >= 0.1) & (m < 0.2)] = -0.0
+    x[:, 0, 0] = 1e4
+    return torch.from_numpy(x.astype(np.float32)).to(device).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("ordering", list(tw.Ordering))
+@pytest.mark.parametrize("b,h,w,n", [(2, 37, 59, 1), (2, 37, 59, 37 * 59),
+                                     (2, 444, 640, 1000),
+                                     (3, 640, 444, 20000),
+                                     (4, 1080, 1920, 1000), (2, 37, 61, 9)])
+def test_top_of_plane_kernel_matches_plain(cuda, ordering, b, h, w, n):
+    plane = _tied_plane(h + n, b, h, w, cuda)
+    before = k3.PLANE_LAUNCHES
+    idx, keys = k3.top_of_plane(plane, n, ordering)
+    torch.cuda.synchronize()
+    assert k3.PLANE_LAUNCHES == before + 1
+    want_idx, want_keys = k3.top_of_plane_reference(plane, n, ordering)
+    assert torch.equal(idx, want_idx) and torch.equal(keys, want_keys)
+
+
+@pytest.mark.parametrize("ordering", list(tw.Ordering))
+@pytest.mark.parametrize("h,w,n", [(37, 59, 50), (64, 96, 20),
+                                   (200, 180, 30), (1080, 1920, 1000)])
+def test_top_indices_on_the_card_is_the_cpu_route(cuda, ordering, h, w, n):
+    # ENERGY and ENERGY_ORTHOGONAL take one select over the plane on the
+    # card, LEGACY the tiled route; the CPU takes JAX's routes.
+    rng = np.random.default_rng(h + w)
+    x = np.round(rng.standard_normal((2, h, w)) * 4) / 4
+    x[rng.random((2, h, w)) < 0.2] = -0.0
+    plane = torch.from_numpy(x.astype(np.float32))
+    before = k3.LAUNCHES
+    got = ranking.top_indices(plane.to(cuda), n, ordering)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES > before
+    assert torch.equal(got.cpu(), ranking.top_indices(plane, n, ordering))
+
+
+def test_topk_select_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    key = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        k3.top_by_key(key.long(), None, 4)  # not int32
+    with pytest.raises(ValueError):
+        k3.top_by_key(key.t(), None, 1)  # not contiguous
+    with pytest.raises(ValueError):
+        k3.top_by_key(key, None, 65)  # n > L
+    with pytest.raises(ValueError):
+        k3.top_by_key(key, torch.arange(63, device=cuda), 4)  # pos shape
+    with pytest.raises(ValueError):
+        k3.top_by_key(key, torch.arange(64, device=cuda).int(), 4)
+    with pytest.raises(ValueError):
+        k3.top_by_key(key, torch.arange(64), 4)  # CPU/CUDA mix
+    plane = torch.zeros((2, 8, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        k3.top_of_plane(plane.float(), 4, tw.Ordering.ENERGY)  # not bf16
+    with pytest.raises(ValueError):
+        k3.top_of_plane(plane.transpose(1, 2), 4, tw.Ordering.ENERGY)
+
+
+@pytest.mark.parametrize("precision", list(tw.Precision))
+def test_every_tier_selects_through_k3(cuda, precision):
+    rng = np.random.default_rng(21)
+    rgb = torch.from_numpy(rng.integers(0, 256, (2, 64, 96, 3),
+                                        dtype=np.uint8)).to(cuda)
+    marks = torch.from_numpy(rng.standard_normal((2, 1, 100)).astype(
+        np.float32)).to(cuda)
+    fast = precision is not tw.Precision.HIGHEST
+    for version in (1, 2) if fast else (2,):
+        cfg = tw.WriteConfig(precision=precision, rank_version=version)
+        planes, keys = k3.PLANE_LAUNCHES, k3.LAUNCHES
+        marked, ext = tw.embed_verified(rgb, marks, cfg)
+        torch.cuda.synchronize()
+        # Generation 2: the select over the plane and the re-sort;
+        # generation 1: the select over its keys and the re-sort.
+        assert k3.PLANE_LAUNCHES - planes == (fast and version == 2)
+        assert k3.LAUNCHES - keys >= (2 if fast and version == 1 else 1)
+        c_marked, c_ext = tw.embed_verified(rgb.cpu(), marks.cpu(), cfg)
+        assert int((marked.cpu().int() - c_marked.int()).abs().max()) <= 1

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import spread_spectrum_watermarking_torch as tw
+from spread_spectrum_watermarking_torch import kernels
 from spread_spectrum_watermarking_torch.parallel.dryrun import (
     dryrun_multichip,
     parity_rank,
@@ -108,6 +109,17 @@ def test_staged_matches_jax_at_the_tier_standard(port, run):
         t_sims = tw.similarity(te, refs).numpy()
         assert np.all(np.abs(j_sims - t_sims) <= 0.1)
         assert np.all(t_sims[:, -1] > 6.0)
+
+
+def test_staged_counts_launches_per_run(port):
+    # Every rank returns one launch record per run, each holding every
+    # kernel's count from that run alone (all 0 on the CPU, where the
+    # plain versions run), so that each run's kernels can be told apart.
+    names = set(kernels.launch_counts())
+    for rank in port:
+        recs = rank["staged"]["run_launches"]
+        assert len(recs) == len(RUNS)
+        assert all(set(r) == names and not any(r.values()) for r in recs)
 
 
 def test_staged_returns_on_the_last_stage_only(port):
