@@ -39,18 +39,24 @@ Phases, one line of output each, any failure exits non-zero:
    bound and one ``torch.matmul`` of the dense pass;
 4c. K7 (add and quantize) bit-equal to its plain version at 48x1080x1920
    in both modes, with its times, its bound and the two-rounding form's;
-4d. K3 (the exact top-n select) index for index equal to its plain
-   version: over the main path's 48x1080x1920 bf16 plane at each ordering
-   (keys built in the kernel), over HIGHEST's int32 key plane at 48 x
-   1080p (and equal to the tiled route), on the re-sort (48, 1000) with
-   flat indices as positions, on the tiled route's (48, 32000)
-   candidates, on rows of equal keys and of int32 extremes, at n = 1 and
-   n = L on a 37x59 plane and at n = 20,000; each mode's time beside its
-   plain version's, one ``torch.topk`` on prebuilt composites and its
+4d. K3 (the exact top-n select) index for index (estimates bit for bit)
+   equal to its plain version, each call logged with its device launches
+   (two up to n = 4096) and the host's microseconds to issue it: the plane
+   mode (generation 2's select, re-sort and estimates in one call) over
+   the main path's 48x1080x1920 bf16 plane at each ordering, the f32 mode
+   over HIGHEST's f32 coefficients at 48 x 1080p at ENERGY and
+   ENERGY_ORTHOGONAL (equal to the key mode and the tiled route too), the
+   key mode over HIGHEST's int32 key plane, on generation 1's re-sort
+   (48, 1000) with flat indices as positions, on the tiled route's
+   (48, 32000) candidates, on rows of equal keys and of int32 extremes,
+   every mode at n = 1 and n = L on a 37x59 plane and at n = 20,000 (the
+   multi-pass path); ``top_indices`` at HIGHEST ENERGY raising the peak of
+   allocated memory by less than one f32 plane; each mode's time beside
+   its plain version's, one ``torch.topk`` on prebuilt composites and its
    bound;
 5. the main path: ``embed_verified`` at 1080p, batch 48, n = 1000, DEFAULT
    on 1/f textures, with the kernels' launch counts from that one call
-   (K1, K4, and K3 over the plane and over the re-sort), the
+   (K1, K4, and K3's plane mode, its re-sort inside: no key-mode launch), the
    detection checks, the detect path's bit-equality, agreement with the
    CPU run of the same code on a small input, a stage breakdown,
    images/s from the port's bench harness (``bench.run_verified_bench``:
@@ -60,7 +66,8 @@ Phases, one line of output each, any failure exits non-zero:
 6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, its pair
    mode and K4 launched in the one call, K6 not;
 6b. rank generation 1 (``rank_version=1``), the same checks at DEFAULT and
-   at HIGH (K1, its high mode at HIGH, K4, and K3 at least twice launched),
+   at HIGH (K1, its high mode at HIGH, K4, and K3's key mode at least
+   twice launched: its record's launches come from the DEFAULT call),
    its rate from the harness's ``_timed_chain``;
 6c. the custom callables on 4 x 1080p at each tier, each a reimplementation
    of a built-in held to it: Option2 as ``custom_insert`` bit for bit, its
@@ -72,8 +79,8 @@ Phases, one line of output each, any failure exits non-zero:
    DEFAULT and HIGH read back by the fast Reader, float input at DEFAULT,
    ``prepare_base`` at HIGH;
 8. the HIGHEST path (every config's default) at 1080p batch 48:
-   ``embed_verified`` with K6a's, K7's and K3's launch counts from that
-   call (K7 exactly once), detection,
+   ``embed_verified`` with K6a's, K7's and K3's f32-mode launch counts
+   from that call (K7 exactly once, K3's key mode never), detection,
    ``extract`` bit-equal to its extraction and ``extract_prepared`` within
    0.01 sigma of it, ``embed(sparse_idct=False)`` with K6b's launch count,
    the CPU agreement check, Writer/Reader/Tester on one image, a stage
@@ -117,7 +124,8 @@ Phases, one line of output each, any failure exits non-zero:
    of the single-device read), the staged embed on 3 ranks bit-equal at
    DEFAULT and HIGH (HIGHEST refused), and ``dryrun_multichip(4,
    "cuda")``; every rank's kernel launches are recorded and K1, K4, K6a,
-   K7 and K3 must have launched inside the DP ranks, K3 in the spatial and
+   K7 and K3's plane and f32 modes must have launched inside the DP
+   ranks, K3's key mode in the spatial and
    corpus ranks (and the NCCL paths), and in the staged embed each run's
    own counts must show K1's single mode (DEFAULT) or its high mode (HIGH)
    on stage 0 and not the other, K3's plane mode on stage 1, K4 on
@@ -833,17 +841,36 @@ def phase_k7() -> dict:
 
 
 def _k3_check(tag: str, got, want, **fields) -> None:
-    """K3's outputs index for index equal to its plain version's; logs,
-    raises where they differ."""
+    """K3's outputs index for index (f32 estimates bit for bit) equal to its
+    plain version's; logs, raises where they differ."""
     import torch
 
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
-    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    bits = [(g.view(torch.int32), w.view(torch.int32))
+            if g.dtype == torch.float32 else (g, w) for g, w in zip(got, want)]
+    equal = all(torch.equal(g, w) for g, w in bits)
     log("k3", case=tag, index_equal=equal, **fields)
     if not equal:
         raise AssertionError(f"K3 {tag}: differs from its plain version")
+
+
+def _k3_issue(fn):
+    """``(out, fields)``: one K3 call after a warm-up call, with the device
+    launches it made (``LAST_DEVICE_LAUNCHES``) and the host's microseconds
+    to issue it (no sync inside)."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import topk_select as k3
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    host_us = (time.perf_counter() - t0) * 1e6
+    return out, {"device_launches": k3.LAST_DEVICE_LAUNCHES,
+                 "host_issue_us": host_us}
 
 
 def _composite_topk(key, pos=None):
@@ -857,19 +884,25 @@ def _composite_topk(key, pos=None):
     return lambda: torch.topk(comp, N, dim=-1, sorted=True)
 
 
-def phase_k3() -> tuple[dict, dict]:
-    """K3 index for index against its plain version on the card: its plane
-    mode on the main path's 48 x 1080 x 1920 bf16 plane at each ordering;
-    its key mode on HIGHEST's int32 key plane (48 x 1080p, also against
-    the tiled route), on the re-sort (48, n) with the selected flat indices
-    as positions and on the tiled route's (48, 32 n) tile-ordered
-    candidates; a row of equal keys (positions along the row and
-    permuted), int32 extremes, n = 1 and n = L on a 37 x 59 plane and
-    n = 20,000 (the global-memory sort), both modes. Then each mode's time
-    at the main path's shapes (and at HIGHEST's plane) beside its plain
-    version's, one ``torch.topk`` on prebuilt composites and its bound
-    (one read of the input, one write of the output): the records of
-    ``topk_select`` and ``topk_select_plane``."""
+def phase_k3() -> tuple[dict, dict, dict]:
+    """K3 index for index (estimates bit for bit) against its plain
+    versions on the card, each call logged with its device launches and
+    the host's microseconds to issue it: the plane mode (generation 2's
+    select, re-sort and estimates in one call) on the main path's 48 x 1080
+    x 1920 bf16 plane at each ordering; the f32 mode on HIGHEST's f32
+    coefficients (48 x 1080p, K6a on the luma) at ENERGY and
+    ENERGY_ORTHOGONAL, also against the key mode over the key plane and the
+    tiled route; the key mode on that int32 key plane, on generation 1's
+    re-sort (48, n) with the selected flat indices as positions and on the
+    tiled route's (48, 32 n) tile-ordered candidates; a row of equal keys
+    (positions along the row and permuted), int32 extremes, n = 1 and
+    n = L on a 37 x 59 plane; n = 20,000 (the multi-pass path) in each
+    mode. ``top_indices`` at HIGHEST ENERGY must raise the peak of
+    allocated memory by less than one f32 plane. Then each mode's time
+    beside its plain version's, one ``torch.topk`` on prebuilt composites
+    and its bound (one read of the input, one write of the output): the
+    records of ``topk_select``, ``topk_select_plane`` and
+    ``topk_select_coeffs``."""
     import torch
 
     from spread_spectrum_watermarking_torch import Ordering, Precision
@@ -881,19 +914,24 @@ def phase_k3() -> tuple[dict, dict]:
         ax = dct.shorter_axis(rgb.shape[1], rgb.shape[2])
         return tp._second_pass(tp._half_pass(rgb, Precision.DEFAULT), ax)
 
+    energy, ortho = Ordering.ENERGY, Ordering.ENERGY_ORTHOGONAL
     plane = plane_of(textures(30, 48, 1080, 1920))  # the main path's
     shape = list(plane.shape)
     for o in Ordering:
-        _k3_check(f"plane_{o.value}", k3.top_of_plane(plane, N, o),
-                  k3.top_of_plane_reference(plane, N, o), shape=shape, n=N)
-    energy = Ordering.ENERGY
-    idx, kv = k3.top_of_plane(plane, N, energy)
+        got, issue = _k3_issue(lambda: k3.top_of_plane(plane, N, o))
+        _k3_check(f"plane_{o.value}", got,
+                  k3.top_of_plane_reference(plane, N, o), shape=shape, n=N,
+                  **issue)
+    idx, kv = k3.plane_set_reference(plane, N, energy)
     order_key = torch.where(idx == 0, ranking._DC_KEY, kv & 0xFFFE)
-    _k3_check("resort", k3.top_by_key(order_key, idx, N),
-              k3.top_by_key_reference(order_key, idx, N), shape=[48, N], n=N)
-    _k3_check("plane_n_20000", k3.top_of_plane(plane[:8], 20000, energy),
-              k3.top_of_plane_reference(plane[:8], 20000, energy),
-              shape=[8, 1080, 1920], n=20000)
+    got, issue = _k3_issue(lambda: k3.top_by_key(order_key, idx, N))
+    _k3_check("resort", got, k3.top_by_key_reference(order_key, idx, N),
+              shape=[48, N], n=N, **issue)
+    for o in Ordering:
+        got, issue = _k3_issue(lambda: k3.top_of_plane(plane[:8], 20000, o))
+        _k3_check(f"plane_n_20000_{o.value}", got,
+                  k3.top_of_plane_reference(plane[:8], 20000, o),
+                  shape=[8, 1080, 1920], n=20000, **issue)
     b, h, w = plane.shape
     times = {
         "plane_ms": time_ms(lambda: k3.top_of_plane(plane, N, energy), 20),
@@ -905,8 +943,8 @@ def phase_k3() -> tuple[dict, dict]:
         "resort_plain_ms": time_ms(
             lambda: k3.top_by_key_reference(order_key, idx, N), 20),
         "resort_library_ms": time_ms(_composite_topk(order_key, idx), 20)}
-    # Bytes: the input read once (bf16 plane; int32 keys and int64
-    # positions), the int64 positions (and the plane mode's int32 keys)
+    # Bytes: the input read once (bf16 or f32 plane; int32 keys and int64
+    # positions), the int64 positions (and the plane mode's f32 estimates)
     # written once. The few integer operations an element are not counted.
     bounds = {"plane": bound(0, 2 * plane.numel() + 12 * b * N, BF16_PEAK),
               "resort": bound(0, 12 * b * N + 8 * b * N, BF16_PEAK)}
@@ -917,27 +955,63 @@ def phase_k3() -> tuple[dict, dict]:
     size = 37 * 59
     for o in Ordering:
         for n in (1, size):
-            _k3_check(f"plane_37x59_{o.value}_n{n}",
-                      k3.top_of_plane(small, n, o),
-                      k3.top_of_plane_reference(small, n, o), n=n)
+            got, issue = _k3_issue(lambda: k3.top_of_plane(small, n, o))
+            _k3_check(f"plane_37x59_{o.value}_n{n}", got,
+                      k3.top_of_plane_reference(small, n, o), n=n, **issue)
     small_key = k3.plane_keys(small, energy)
+    small_c = small.float()
     for n in (1, size):
-        _k3_check(f"keys_37x59_n{n}", k3.top_by_key(small_key, None, n),
-                  k3.top_by_key_reference(small_key, None, n), n=n)
+        got, issue = _k3_issue(lambda: k3.top_by_key(small_key, None, n))
+        _k3_check(f"keys_37x59_n{n}", got,
+                  k3.top_by_key_reference(small_key, None, n), n=n, **issue)
+        for o in (energy, ortho):
+            got, issue = _k3_issue(lambda: k3.top_of_coeffs(small_c, n, o))
+            _k3_check(f"coeffs_37x59_{o.value}_n{n}", got,
+                      k3.top_of_coeffs_reference(small_c, n, o), n=n, **issue)
 
-    # HIGHEST's key plane, from its own path's pieces (K6a on the luma).
+    # HIGHEST's f32 coefficients, from its own path's pieces (K6a on the
+    # luma), and the int32 key plane the key mode selects over.
     c = dct.dct2_2d(colorspace.luma(textures(60, 48, 1080, 1920)))
+    for o in (energy, ortho):
+        got, issue = _k3_issue(lambda: k3.top_of_coeffs(c, N, o))
+        _k3_check(f"coeffs_{o.value}", got,
+                  k3.top_of_coeffs_reference(c, N, o), shape=list(c.shape),
+                  n=N, **issue)
+        got, issue = _k3_issue(lambda: k3.top_of_coeffs(c[:8], 20000, o))
+        _k3_check(f"coeffs_n_20000_{o.value}", got,
+                  k3.top_of_coeffs_reference(c[:8], 20000, o), n=20000,
+                  **issue)
+    # top_indices at HIGHEST ENERGY writes no metric or key plane: the peak
+    # rises by the scratch and the output only.
+    plane_bytes = 4 * c.numel()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    coeff_idx = ranking.top_indices(c, N, energy)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    k3.top_of_coeffs_reference(c, N, energy)
+    torch.cuda.synchronize()
+    plain_rise = torch.cuda.max_memory_allocated() - before
+    log("k3_memory", shape=list(c.shape), f32_plane_bytes=plane_bytes,
+        top_indices_peak_rise_bytes=rise, plain_peak_rise_bytes=plain_rise)
+    if not rise < plane_bytes:
+        raise AssertionError(f"top_indices at HIGHEST ENERGY raised the "
+                             f"peak by {rise} bytes, a plane is {plane_bytes}")
     key = ranking._f32_key(ranking.ranking_metric(c, energy).reshape(
         48, -1).contiguous())
-    del c
     key[..., 0] = ranking._NEG_INF_KEY
     tiled = ranking._tiled_top(key, N, 32)
-    got = k3.top_by_key(key, None, N)
+    got, issue = _k3_issue(lambda: k3.top_by_key(key, None, N))
     _k3_check("highest_keys", got, k3.top_by_key_reference(key, None, N),
-              shape=list(key.shape), n=N)
+              shape=list(key.shape), n=N, **issue)
     _k3_check("highest_keys_vs_tiled_route", got, tiled, n=N)
-    _k3_check("highest_keys_n_20000", k3.top_by_key(key[:8], None, 20000),
-              k3.top_by_key_reference(key[:8], None, 20000), n=20000)
+    _k3_check("highest_coeffs_vs_key_mode", coeff_idx, got, n=N)
+    got, issue = _k3_issue(lambda: k3.top_by_key(key[:8], None, 20000))
+    _k3_check("highest_keys_n_20000", got,
+              k3.top_by_key_reference(key[:8], None, 20000), n=20000, **issue)
     # The tiled route's candidates: the n tiles of 32 its recursion picks.
     tiles = key.reshape(48, -1, 32)
     tile_ids = ranking._tiled_top(tiles.amax(-1), N, 32)
@@ -945,46 +1019,61 @@ def phase_k3() -> tuple[dict, dict]:
         tiles, 1, tile_ids[..., None].expand(48, N, 32)).reshape(48, -1))
     cand_idx = (tile_ids[..., None] * 32
                 + torch.arange(32, device="cuda")).reshape(48, -1)
-    _k3_check("tiled_candidates", k3.top_by_key(cand, cand_idx, N),
+    got, issue = _k3_issue(lambda: k3.top_by_key(cand, cand_idx, N))
+    _k3_check("tiled_candidates", got,
               k3.top_by_key_reference(cand, cand_idx, N),
-              shape=list(cand.shape), n=N)
+              shape=list(cand.shape), n=N, **issue)
     times.update({
         "highest_keys_ms": time_ms(lambda: k3.top_by_key(key, None, N), 20),
         "highest_keys_plain_ms": time_ms(
             lambda: k3.top_by_key_reference(key, None, N), 5),
         "highest_keys_library_ms": time_ms(_composite_topk(key), 5),
         "highest_tiled_route_ms": time_ms(
-            lambda: ranking._tiled_top(key, N, 32), 5)})
+            lambda: ranking._tiled_top(key, N, 32), 5),
+        "coeffs_ms": time_ms(lambda: k3.top_of_coeffs(c, N, energy), 20),
+        "coeffs_ortho_ms": time_ms(lambda: k3.top_of_coeffs(c, N, ortho),
+                                   20),
+        "coeffs_plain_ms": time_ms(
+            lambda: k3.top_of_coeffs_reference(c, N, energy), 5)})
+    times["coeffs_library_ms"] = times["highest_keys_library_ms"]
     bounds["highest_keys"] = bound(0, 4 * key.numel() + 8 * 48 * N,
                                    BF16_PEAK)
-    del key, tiles, cand, cand_idx
+    bounds["coeffs"] = bound(0, 4 * c.numel() + 8 * 48 * N, F32_PEAK)
+    del key, tiles, cand, cand_idx, c, coeff_idx
     torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     equal = torch.full((4, 1_000_000), 7, dtype=torch.int32, device="cuda")
     perm = torch.stack([torch.randperm(1_000_000, generator=gen,
                                        device="cuda") for _ in range(4)])
-    _k3_check("equal_keys", k3.top_by_key(equal, None, N),
-              k3.top_by_key_reference(equal, None, N), shape=[4, 1_000_000])
-    _k3_check("equal_keys_permuted_pos", k3.top_by_key(equal, perm * 3 + 1, N),
+    got, issue = _k3_issue(lambda: k3.top_by_key(equal, None, N))
+    _k3_check("equal_keys", got, k3.top_by_key_reference(equal, None, N),
+              shape=[4, 1_000_000], **issue)
+    got, issue = _k3_issue(lambda: k3.top_by_key(equal, perm * 3 + 1, N))
+    _k3_check("equal_keys_permuted_pos", got,
               k3.top_by_key_reference(equal, perm * 3 + 1, N),
-              shape=[4, 1_000_000])
+              shape=[4, 1_000_000], **issue)
     ends = torch.tensor([-2 ** 31, -2 ** 31 + 1, -1, 0, 1, 2 ** 31 - 2,
                          2 ** 31 - 1], dtype=torch.int32, device="cuda")
     extremes = ends[torch.randint(0, 7, (4, 1_000_000), generator=gen,
                                   device="cuda")]
-    _k3_check("int32_extremes", k3.top_by_key(extremes, None, N),
+    got, issue = _k3_issue(lambda: k3.top_by_key(extremes, None, N))
+    _k3_check("int32_extremes", got,
               k3.top_by_key_reference(extremes, None, N),
-              shape=[4, 1_000_000])
+              shape=[4, 1_000_000], **issue)
     log("k3_time", card=_card(), shape=shape, n=N, **times,
         **{f"{name}_{k}": v for name, bd in bounds.items()
            for k, v in bd.items()})
-    return ({"max_abs_err": 0, "ms": times["resort_ms"],
-             "plain_ms": times["resort_plain_ms"],
-             "library_ms": times["resort_library_ms"], **bounds["resort"]},
+    return ({"max_abs_err": 0, "ms": times["highest_keys_ms"],
+             "plain_ms": times["highest_keys_plain_ms"],
+             "library_ms": times["highest_keys_library_ms"],
+             **bounds["highest_keys"]},
             {"max_abs_err": 0, "ms": times["plane_ms"],
              "plain_ms": times["plane_plain_ms"],
-             "library_ms": times["plane_library_ms"], **bounds["plane"]})
+             "library_ms": times["plane_library_ms"], **bounds["plane"]},
+            {"max_abs_err": 0, "ms": times["coeffs_ms"],
+             "plain_ms": times["coeffs_plain_ms"],
+             "library_ms": times["coeffs_library_ms"], **bounds["coeffs"]})
 
 
 def _check_detection(tag: str, ext, marks, gen) -> dict:
@@ -1164,10 +1253,11 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
     """One fast tier's path at 1080p batch 48 and rank generation
     ``rank_version``: ``embed_verified`` with the launch counts of that one
     call (DEFAULT: K1 and K4; HIGH: K1's high mode, its pair mode and K4;
-    never K6; K3 over the plane and over the re-sort at generation 2, twice
+    never K6; K3 over the plane, its re-sort inside, at generation 2, twice
     over keys at generation 1), then the checks, the stages, the rate (the
-    harness's chains of ``iters`` calls) and the profile. ``recs``: the kernel records to
-    fill with the main path's launches (None for generation 1)."""
+    harness's chains of ``iters`` calls) and the profile. ``recs``: the
+    kernel records to fill with this path's launches (generation 2: K1, K4
+    and K3's plane mode; generation 1: K3's key mode), or None."""
     import torch
 
     import spread_spectrum_watermarking_torch as wm
@@ -1188,21 +1278,22 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
     counts = _kernel_counts()
     if high:
         ran = counts["k1_high"] > 0 and counts["k1"] > 0 and counts["k4"] > 0
-        if recs is not None:
-            recs["luma_pass_high"]["launches"] = counts["k1_high"]
     else:
         ran = (counts["k1"] > counts["k1_pair"] > 0 and counts["k4"] > 0
                and counts["k1_high"] == 0)
-        if recs is not None:
-            recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
-            recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
-            recs["embed_epilogue"]["launches"] = counts["k4"]
-            recs["topk_select"]["launches"] = counts["k3"]
-            recs["topk_select_plane"]["launches"] = counts["k3_plane"]
-    # K3: generation 2 selects over the plane, then re-sorts; generation 1
-    # selects over its keys, then re-sorts.
+    if recs is not None and rank_version == 1:
+        recs["topk_select"]["launches"] = counts["k3"]
+    elif recs is not None and high:
+        recs["luma_pass_high"]["launches"] = counts["k1_high"]
+    elif recs is not None:
+        recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
+        recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
+        recs["embed_epilogue"]["launches"] = counts["k4"]
+        recs["topk_select_plane"]["launches"] = counts["k3_plane"]
+    # K3: generation 2 is one call over the plane, its re-sort inside;
+    # generation 1 selects over its keys, then re-sorts.
     if rank_version == 2:
-        ran = ran and counts["k3_plane"] >= 1 and counts["k3"] >= 1
+        ran = ran and counts["k3_plane"] >= 1 and counts["k3"] == 0
     else:
         ran = ran and counts["k3"] >= 2
     if not ran or any(counts[k] for k in ("k6a", "k6b", "k1f", "k1f_high",
@@ -1313,7 +1404,7 @@ def phase_custom() -> None:
         return out, _kernel_counts()
 
     def launched(counts, fast: bool, write: bool, high: bool) -> bool:
-        if counts["k3"] < 1:
+        if counts["k3"] + counts["k3_plane"] + counts["k3_coeffs"] < 1:
             return False
         if not fast:
             return counts["k6a"] > 0 and (counts["k7"] == 1 or not write)
@@ -1432,7 +1523,8 @@ def _stage_breakdown_highest(rgb, marks, cfg) -> dict:
     return _median_stages(stages)
 
 
-def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
+def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
+                  k3c_rec: dict) -> None:
     import torch
 
     import spread_spectrum_watermarking_torch as wm
@@ -1450,7 +1542,9 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict) -> None:
     counts = _kernel_counts()
     k6a_rec["launches"] = counts["k6a"]
     k7_rec["launches"] = counts["k7"]
-    if counts["k6a"] == 0 or counts["k7"] != 1 or counts["k3"] == 0:
+    k3c_rec["launches"] = counts["k3_coeffs"]
+    if (counts["k6a"] == 0 or counts["k7"] != 1 or counts["k3_coeffs"] == 0
+            or counts["k3"] != 0):
         raise AssertionError(f"the HIGHEST path launched {counts}")
     det = _check_detection("1080p HIGHEST", ext, marks, gen)
     if marked.shape != rgb.shape or marked.dtype != torch.uint8:
@@ -1874,8 +1968,8 @@ def _parallel_nccl() -> dict:
         rgb_dev, marks_dev = torch.from_numpy(rgb).cuda(), \
             torch.from_numpy(marks).cuda()
         for p, names in ((wm.Precision.DEFAULT, ("k1", "k1_pair", "k4",
-                                                  "k3_plane", "k3")),
-                         (wm.Precision.HIGHEST, ("k6a", "k7", "k3"))):
+                                                  "k3_plane")),
+                         (wm.Precision.HIGHEST, ("k6a", "k7", "k3_coeffs"))):
             cfg, rcfg = wm.WriteConfig(precision=p), wm.ReadConfig(precision=p)
             _zero_kernel_counts()
             t0 = time.perf_counter()
@@ -2003,7 +2097,7 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
             raise AssertionError(f"{backend} DP {prec} differs from one device")
     for r, counts in enumerate(launches):
         _need_launches(f"{backend} DP rank {r}", counts["dp"],
-                       ("k1", "k4", "k6a", "k7", "k3_plane", "k3"))
+                       ("k1", "k4", "k6a", "k7", "k3_plane", "k3_coeffs"))
         _need_launches(f"{backend} spatial rank {r}", counts["spatial"],
                        ("k3",))
         _need_launches(f"{backend} corpus rank {r}", counts["corpus"],
@@ -2075,7 +2169,7 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
             raise AssertionError(f"staged {prec} stage 0 launched {other}: "
                                  f"{per_stage[0]}")
         _need_launches(f"staged {prec} stage 1", per_stage[1],
-                       ("k3_plane", "k3"))
+                       ("k3_plane",))
         _need_launches(f"staged {prec} stage 2", per_stage[2], ("k4",))
     out["staged_run_launches"] = [r["staged"]["run_launches"]
                                   for r in staged]
@@ -2196,9 +2290,13 @@ def main() -> int:
     k3_rec = {"name": "topk_select", "route": "cuda", "source": k3_src,
               "replaces": k3_tpu}
     k3p_rec = dict(k3_rec, name="topk_select_plane")
-    k3_keys, k3_plane = phase_k3()
+    k3c_rec = dict(k3_rec, name="topk_select_coeffs",
+                   replaces="spread_spectrum_watermarking_tpu/ops/ranking.py"
+                            ":306 (lax.top_k; no pallas_call)")
+    k3_keys, k3_plane, k3_coeffs = phase_k3()
     k3_rec.update(k3_keys)
     k3p_rec.update(k3_plane)
+    k3c_rec.update(k3_coeffs)
     torch.cuda.empty_cache()
     recs = {r["name"]: r for r in (k1_rec, k1p_rec, k1h_rec, k4_rec, k3_rec,
                                    k3p_rec)}
@@ -2207,13 +2305,14 @@ def main() -> int:
     phase_fast_path(wm.Precision.HIGH, recs)
     torch.cuda.empty_cache()
     for p in (wm.Precision.DEFAULT, wm.Precision.HIGH):
-        phase_fast_path(p, None, rank_version=1)
+        phase_fast_path(p, recs if p is wm.Precision.DEFAULT else None,
+                        rank_version=1)
         torch.cuda.empty_cache()
     phase_fast_options()
     torch.cuda.empty_cache()
     phase_custom()
     torch.cuda.empty_cache()
-    phase_highest(k6a_rec, k6b_rec, k7_rec)
+    phase_highest(k6a_rec, k6b_rec, k7_rec, k3c_rec)
     torch.cuda.empty_cache()
     phase_4k()
     torch.cuda.empty_cache()
@@ -2230,7 +2329,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
                                   (k1_rec, k1p_rec, k1h_rec, k4_rec, k6a_rec,
                                    k6b_rec, k1f_rec, k1fh_rec, k7_rec,
-                                   k3_rec, k3p_rec)]}))
+                                   k3_rec, k3p_rec, k3c_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

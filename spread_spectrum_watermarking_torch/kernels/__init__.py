@@ -22,13 +22,14 @@ def _modules():
             "k1f_high": (fold_pass, "HIGH_LAUNCHES"),
             "k7": (add_quantize, "LAUNCHES"),
             "k3": (topk_select, "LAUNCHES"),
-            "k3_plane": (topk_select, "PLANE_LAUNCHES")}
+            "k3_plane": (topk_select, "PLANE_LAUNCHES"),
+            "k3_coeffs": (topk_select, "COEFF_LAUNCHES")}
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count in this process, by its short name
     (``k1``, ``k1_pair``, ``k1_high``, ``k4``, ``k6a``, ``k6b``, ``k1f``,
-    ``k1f_high``, ``k7``, ``k3``, ``k3_plane``)."""
+    ``k1f_high``, ``k7``, ``k3``, ``k3_plane``, ``k3_coeffs``)."""
     return {k: getattr(m, a) for k, (m, a) in _modules().items()}
 
 

@@ -102,6 +102,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         lib.ssw_error_string.argtypes = [ctypes.c_int]
         lib.ssw_error_string.restype = ctypes.c_char_p
+        lib.ssw_topk_select_workspace.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int]
+        lib.ssw_topk_select_workspace.restype = ctypes.c_longlong
         BUILD_INFO.update(path=str(out), cached=cached,
                           seconds=time.perf_counter() - t0)
         _lib = lib

@@ -125,7 +125,9 @@ def approx_top_indices(
     the coefficient's sign stored in the key's LSB (ENERGY,
     ENERGY_ORTHOGONAL), or the signed scaled value itself (LEGACY); DC is
     forced below every other key. Indices are ordered by (LSB-masked key
-    desc, index asc) and the estimates rebuilt from the keys, 0.0 at DC.
+    desc, index asc) and the estimates rebuilt from the keys, 0.0 at DC:
+    one K3 call (``kernels.topk_select.top_of_plane``; its plain version
+    is that chain of plain ops).
 
     Generation 1: keys are the bf16-rounded ``ranking_metric`` of the plane
     (the f32 scale product and square rounded once, as XLA rounds the
@@ -149,31 +151,7 @@ def approx_top_indices(
         keys = _bf16_key(m.to(torch.bfloat16).reshape(flat_c.shape))
         return _select_and_resort(
             keys, flat_c, n, lambda i, v: _metric_at(v, i, h, w, ordering))
-    idx, kv = topk_select.top_of_plane(coeffs.contiguous(), n, ordering)
-
-    if ordering == Ordering.LEGACY:
-        order_key = kv
-        bits = torch.where(kv < 0, (-kv) | 0x8000, kv)
-        sval = _from_bits16(bits)
-    else:
-        mag_bits = kv & 0xFFFE
-        order_key = mag_bits
-        mag = _from_bits16(mag_bits)
-        sval = torch.where((kv & 1) != 0, -mag, mag)
-    order_key = torch.where(idx == 0, _DC_KEY, order_key)
-    # DC's estimate is 0.0, not a value that poisons Option2/3 divisions.
-    sval = torch.where(idx == 0, 0.0, sval)
-    if ordering == Ordering.ENERGY:
-        cand_c = sval
-    else:
-        cand_c = sval / _flat_scale(h, w, idx.device)[idx]
-    resort = _top_by_key(order_key, idx, n)
-    return torch.gather(idx, -1, resort), torch.gather(cand_c, -1, resort)
-
-
-def _from_bits16(bits: torch.Tensor) -> torch.Tensor:
-    """int32 holding 16 bf16 bits -> f32 value."""
-    return bits.to(torch.int16).view(torch.bfloat16).to(torch.float32)
+    return topk_select.top_of_plane(coeffs.contiguous(), n, ordering)
 
 
 def ranking_metric(coeffs: torch.Tensor, ordering: Ordering) -> torch.Tensor:
@@ -244,7 +222,8 @@ def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
     order-preserving keys, and, like the JAX package, by one select over
     the plane when it is small (size < 4 n 32, or ``exact_only``) and by
     its tiled selection otherwise; on the card ENERGY and ENERGY_ORTHOGONAL
-    take the one select at every size, the same function. The two differ
+    take the one select at every size, the same function, through K3's f32
+    mode (``kernels.topk_select.top_of_coeffs``) unless ``exact_only``. The two differ
     only in how -0.0 meets +0.0, which LEGACY's signed metric can hold:
     ``lax.top_k`` ranks +0.0 first, the tiled path's final ``lax.sort``
     ranks them as equal; the port reproduces both.
@@ -256,6 +235,18 @@ def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
     h, w = coeffs.shape[-2], coeffs.shape[-1]
     size = h * w
     lead = coeffs.shape[:-2]
+    # On the card, one select over the plane wherever it is the tiled
+    # route's function: the built-in squares hold no -0.0, so _zeros_tie is
+    # the identity there, and the JAX package's _tiled_exact_top_k
+    # docstring (ranking.py:109-131) proves the tiled route equal to the
+    # exact (metric desc, index asc) top-n. K3 builds the keys from the f32
+    # coefficients in registers, so no metric or key plane is written. On
+    # the CPU each route is JAX's.
+    single = (coeffs.device.type == "cuda" and custom_metric is None
+              and ordering in (Ordering.ENERGY, Ordering.ENERGY_ORTHOGONAL))
+    if single and not exact_only:
+        return topk_select.top_of_coeffs(
+            coeffs.to(torch.float32).contiguous(), n, ordering)
     if custom_metric is not None:
         pos = torch.arange(size, device=coeffs.device, dtype=torch.int64)
         metric = custom_metric(pos, coeffs.reshape(*lead, size))
@@ -264,13 +255,6 @@ def top_indices(coeffs: torch.Tensor, n: int, ordering: Ordering,
     key = _f32_key(metric.to(torch.float32).reshape(*lead, size).contiguous())
     key[..., 0] = _NEG_INF_KEY  # DC, as the JAX package's -inf
     tile = 32
-    # On the card, one select over the plane wherever it is the tiled
-    # route's function: the built-in squares hold no -0.0, so _zeros_tie is
-    # the identity there, and the JAX package's _tiled_exact_top_k
-    # docstring (ranking.py:109-131) proves the tiled route equal to the
-    # exact (metric desc, index asc) top-n. On the CPU each route is JAX's.
-    single = (key.device.type == "cuda" and custom_metric is None
-              and ordering in (Ordering.ENERGY, Ordering.ENERGY_ORTHOGONAL))
     if exact_only or size < 4 * n * tile or single:
         return _top_by_key(key, None, n)
     return _tiled_top(key, n, tile)

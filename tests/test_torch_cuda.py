@@ -551,6 +551,8 @@ def test_top_by_key_kernel_matches_plain(cuda, name):
     got = k3.top_by_key(key, pos, n)
     torch.cuda.synchronize()
     assert k3.LAUNCHES == before + 1
+    # Up to CAP: the two-stage path, two device launches.
+    assert n > k3.CAP or k3.LAST_DEVICE_LAUNCHES == 2
     assert torch.equal(got, k3.top_by_key_reference(key, pos, n))
     # Keys that start 4 bytes into their storage take the scalar loads.
     assert torch.equal(k3.top_by_key(_one_word_in(key), pos, n), got)
@@ -588,11 +590,35 @@ def _tied_plane(seed, b, h, w, device):
 def test_top_of_plane_kernel_matches_plain(cuda, ordering, b, h, w, n):
     plane = _tied_plane(h + n, b, h, w, cuda)
     before = k3.PLANE_LAUNCHES
-    idx, keys = k3.top_of_plane(plane, n, ordering)
+    idx, est = k3.top_of_plane(plane, n, ordering)
     torch.cuda.synchronize()
     assert k3.PLANE_LAUNCHES == before + 1
-    want_idx, want_keys = k3.top_of_plane_reference(plane, n, ordering)
-    assert torch.equal(idx, want_idx) and torch.equal(keys, want_keys)
+    assert n > k3.CAP or k3.LAST_DEVICE_LAUNCHES == 2
+    want_idx, want_est = k3.top_of_plane_reference(plane, n, ordering)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(est.view(torch.int32), want_est.view(torch.int32))
+    # A plane that starts 2 bytes into its storage takes the plain loads.
+    got = k3.top_of_plane(_one_word_in(plane), n, ordering)
+    assert torch.equal(got[0], idx) and torch.equal(got[1], est)
+
+
+@pytest.mark.parametrize("ordering", [tw.Ordering.ENERGY,
+                                      tw.Ordering.ENERGY_ORTHOGONAL])
+@pytest.mark.parametrize("b,h,w,n", [(2, 37, 59, 1), (2, 37, 59, 37 * 59),
+                                     (2, 444, 640, 1000),
+                                     (3, 640, 444, 20000),
+                                     (4, 1080, 1920, 1000), (2, 37, 61, 9)])
+def test_top_of_coeffs_kernel_matches_plain(cuda, ordering, b, h, w, n):
+    coeffs = _tied_plane(h + n, b, h, w, cuda).float()
+    coeffs[:, 1, 1] = float("nan")
+    before = k3.COEFF_LAUNCHES
+    got = k3.top_of_coeffs(coeffs, n, ordering)
+    torch.cuda.synchronize()
+    assert k3.COEFF_LAUNCHES == before + 1
+    assert n > k3.CAP or k3.LAST_DEVICE_LAUNCHES == 2
+    assert torch.equal(got, k3.top_of_coeffs_reference(coeffs, n, ordering))
+    assert torch.equal(k3.top_of_coeffs(_one_word_in(coeffs), n, ordering),
+                       got)
 
 
 @pytest.mark.parametrize("ordering", list(tw.Ordering))
@@ -605,11 +631,15 @@ def test_top_indices_on_the_card_is_the_cpu_route(cuda, ordering, h, w, n):
     x = np.round(rng.standard_normal((2, h, w)) * 4) / 4
     x[rng.random((2, h, w)) < 0.2] = -0.0
     plane = torch.from_numpy(x.astype(np.float32))
-    before = k3.LAUNCHES
+    before = k3.LAUNCHES + k3.COEFF_LAUNCHES
     got = ranking.top_indices(plane.to(cuda), n, ordering)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES > before
+    assert k3.LAUNCHES + k3.COEFF_LAUNCHES > before
     assert torch.equal(got.cpu(), ranking.top_indices(plane, n, ordering))
+    # exact_only keeps the key plane's select: the same function.
+    assert torch.equal(
+        ranking.top_indices(plane.to(cuda), n, ordering, exact_only=True),
+        got)
 
 
 def test_topk_select_wrappers_refuse_what_the_kernel_does_not_take(cuda):
@@ -631,6 +661,10 @@ def test_topk_select_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         k3.top_of_plane(plane.float(), 4, tw.Ordering.ENERGY)  # not bf16
     with pytest.raises(ValueError):
         k3.top_of_plane(plane.transpose(1, 2), 4, tw.Ordering.ENERGY)
+    with pytest.raises(ValueError):
+        k3.top_of_coeffs(plane, 4, tw.Ordering.ENERGY)  # not f32
+    with pytest.raises(ValueError):
+        k3.top_of_coeffs(plane.float(), 4, tw.Ordering.LEGACY)
 
 
 @pytest.mark.parametrize("precision", list(tw.Precision))
@@ -643,12 +677,15 @@ def test_every_tier_selects_through_k3(cuda, precision):
     fast = precision is not tw.Precision.HIGHEST
     for version in (1, 2) if fast else (2,):
         cfg = tw.WriteConfig(precision=precision, rank_version=version)
-        planes, keys = k3.PLANE_LAUNCHES, k3.LAUNCHES
+        planes, keys, coeffs = (k3.PLANE_LAUNCHES, k3.LAUNCHES,
+                                k3.COEFF_LAUNCHES)
         marked, ext = tw.embed_verified(rgb, marks, cfg)
         torch.cuda.synchronize()
-        # Generation 2: the select over the plane and the re-sort;
-        # generation 1: the select over its keys and the re-sort.
+        # Generation 2: one call over the plane, its re-sort inside;
+        # generation 1: the select over its keys and the re-sort; HIGHEST:
+        # the f32 mode.
         assert k3.PLANE_LAUNCHES - planes == (fast and version == 2)
-        assert k3.LAUNCHES - keys >= (2 if fast and version == 1 else 1)
+        assert k3.LAUNCHES - keys == (2 if fast and version == 1 else 0)
+        assert k3.COEFF_LAUNCHES - coeffs == (not fast)
         c_marked, c_ext = tw.embed_verified(rgb.cpu(), marks.cpu(), cfg)
         assert int((marked.cpu().int() - c_marked.int()).abs().max()) <= 1

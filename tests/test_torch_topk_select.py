@@ -6,9 +6,19 @@
   among them, a row of equal keys, L not a multiple of a block's tile,
   n = 1 and n = L, leading batch dimensions, and positions that are not an
   arange (shared, or per row).
-- The same contract for the kernel's algorithm, emulated here in numpy:
-  11-bit digits from the top of the composite, the stop rule and the
-  compaction, then the sort of the candidates.
+- The same contract for the kernel's two algorithms, emulated here in
+  numpy: the multi-pass path (n > ``CAP``: 11-bit digits from the top of
+  the composite, the stop rule and the compaction, then the sort of the
+  candidates) and the two-stage path (n <= ``CAP``: each chunk streamed in
+  tiles through a bounded buffer with a running bound, cut by 8-bit radix
+  selects to between n and n + slack entries, at most n + slack candidates
+  a chunk, the same over the row's candidates with an exact last cut,
+  then the sort), over chunk sizes, slacks and tie-heavy inputs.
+- Generation 2's plain version (``top_of_plane_reference``: the set, the
+  estimates and the re-sort) bit for bit equal to the chain of plain ops
+  ``approx_top_indices`` ran before the re-sort moved into K3.
+- The f32 mode's plain version (``top_of_coeffs_reference``) index for
+  index equal to ``ranking.top_indices`` and to the JAX package's.
 - (B) ``plane_keys`` bit for bit against the JAX package's key build
   (``ops/ranking.py:256-273``, through ``jax.lax.bitcast_convert_type``) on
   one bf16 plane with DC and signed zeros, at each ordering, and against
@@ -107,21 +117,30 @@ def test_top_by_key_plain_version_is_the_lexsort_order(name):
         got, k3.top_by_key_reference(torch.from_numpy(key), tpos, n).numpy())
 
 
-def _emulated_select(key, pos, n, key_bits=32):
-    """The kernel's algorithm in numpy, on one row: each element's
-    composite (k << pbits) | (2^pbits - 1 - pos), 11-bit digits from the
-    top while the candidates do not fit the sort, then the compaction
-    (composite >= prefix) and a descending sort of the candidates."""
-    length = key.shape[-1]
+def _mapped(key, key_bits):
+    """The kernel's unsigned keys: int32 with the sign bit flipped (32
+    bits), or a plane key + 0x8000 with DC at 0 (16 bits)."""
     if key_bits == 32:
-        k = key.astype(np.int64) & 0xFFFFFFFF ^ 0x80000000
-    else:
-        k = key.astype(np.int64) + 0x8001
+        return key.astype(np.int64) & 0xFFFFFFFF ^ 0x80000000
+    return np.where(key == tr._DC_KEY, 0, key.astype(np.int64) + 0x8000)
+
+
+def _composites(k, t, pbits):
+    """(k << pbits) | (2^pbits - 1 - t) as uint64."""
+    return (k.astype(np.uint64) << np.uint64(pbits)) | (
+        np.uint64((1 << pbits) - 1) - t.astype(np.uint64))
+
+
+def _emulated_select(key, pos, n, key_bits=32):
+    """The multi-pass path in numpy, on one row: each element's composite
+    (k << pbits) | (2^pbits - 1 - pos), 11-bit digits from the top while
+    the candidates do not fit the sort, then the compaction (composite >=
+    prefix) and a descending sort of the candidates."""
+    length = key.shape[-1]
+    k = _mapped(key, key_bits)
     pbits = 31 if pos is not None else int(length - 1).bit_length()
     p = np.arange(length) if pos is None else pos
-    u = [int(a) << pbits | ((1 << pbits) - 1 - int(b))
-         for a, b in zip(k, p)]
-    u = np.array(u, dtype=np.uint64)
+    u = _composites(k, np.asarray(p), pbits)
     cap = min(16384, max(2048, 2 * n)) if n <= 16384 else n
     lo, prefix, above = key_bits + pbits, 0, 0
     passes = 0
@@ -167,16 +186,186 @@ def test_emulated_radix_select_is_the_lexsort_order(name):
 
 @pytest.mark.parametrize("ordering", ORDERINGS)
 def test_emulated_plane_select_matches_the_plain_version(ordering):
-    # 16-bit keys (17 bits with DC below them), positions along the row.
+    # 16-bit keys (DC mapped below them), positions along the row; the
+    # multi-pass path and the two-stage path.
     plane = _signed_zero_plane(11, 2, 48, 64)
     keys = k3.plane_keys(plane, Ordering(ordering)).numpy()
-    idx, kv = k3.top_of_plane_reference(plane, 300, Ordering(ordering))
+    idx, kv = k3.plane_set_reference(plane, 300, Ordering(ordering))
     for b in range(2):
-        got, passes = _emulated_select(keys[b], None, 300, key_bits=17)
+        got, passes = _emulated_select(keys[b], None, 300, key_bits=16)
         np.testing.assert_array_equal(got, idx[b].numpy())
         assert passes >= 1
+        got = _emulated_two_stage(keys[b], None, 300, chunk=1024, tile=256,
+                                  buf=1024, key_bits=16, slack=200)
+        np.testing.assert_array_equal(got, idx[b].numpy())
     np.testing.assert_array_equal(kv.numpy(),
                                   np.take_along_axis(keys, idx.numpy(), -1))
+
+
+def _radix_bound(comp, m, lo0, m_hi=None):
+    """The kernel's ``select_bound``: 8-bit digits of the composites from
+    bit lo0 down, until the bucket of the m-th largest fits under m_hi
+    (None: m, exact); the bound P with between m and m_hi composites at or
+    above it."""
+    m_hi = m if m_hi is None else m_hi
+    prefix, lo, above = 0, lo0, 0
+    while True:
+        d = min(8, lo)
+        sh = lo - d
+        inb = (comp >> np.uint64(lo)) == np.uint64(prefix >> lo)
+        digits = (comp[inb] >> np.uint64(sh)) & np.uint64((1 << d) - 1)
+        hist = np.bincount(digits.astype(np.int64), minlength=256)
+        need, acc = m - above, 0
+        for b in range(255, -1, -1):
+            if acc + hist[b] >= need:
+                break
+            acc += hist[b]
+        prefix |= b << sh
+        lo = sh
+        above += acc
+        if above + hist[b] <= m_hi or sh == 0:
+            assert m <= int((comp >= np.uint64(prefix)).sum()) <= m_hi
+            return prefix
+
+
+def _bounded(k, t, j, n, keep, last, tile, buf, lo0, pbits):
+    """One block of the two-stage path: (k, t, j) streamed in tiles, each
+    element at or above the running bound P appended to a buffer of
+    ``buf`` entries; once the buffer could not take another tile it is cut
+    to between n and ``keep`` of its best (``_radix_bound``) and P rises;
+    at the end, cut again if more than ``last`` are left (to exactly n
+    when ``last`` is n). Returns the kept (k, t, j), in no particular
+    order."""
+    bk = np.zeros(0, np.int64)
+    bt = bj = bk
+    bound = 0
+    for s in range(0, len(k), tile):
+        c = _composites(k[s:s + tile], t[s:s + tile], pbits)
+        at = c >= np.uint64(bound)
+        bk = np.concatenate([bk, k[s:s + tile][at]])
+        bt = np.concatenate([bt, t[s:s + tile][at]])
+        bj = np.concatenate([bj, j[s:s + tile][at]])
+        assert len(bk) <= buf
+        if len(bk) >= buf - tile:
+            bound = _radix_bound(_composites(bk, bt, pbits), n, lo0, keep)
+            kept = _composites(bk, bt, pbits) >= np.uint64(bound)
+            bk, bt, bj = bk[kept], bt[kept], bj[kept]
+    if len(bk) > last:
+        bound = _radix_bound(_composites(bk, bt, pbits), n, lo0,
+                             keep if last == keep else n)
+        kept = _composites(bk, bt, pbits) >= np.uint64(bound)
+        bk, bt, bj = bk[kept], bt[kept], bj[kept]
+    assert min(n, len(k)) <= len(bk) <= last
+    return bk, bt, bj
+
+
+def _emulated_two_stage(key, pos, n, chunk, tile, buf, key_bits=32,
+                        slack=0):
+    """The two-stage path in numpy, on one row: each chunk of ``chunk``
+    elements down to at most n + ``slack`` candidates that hold its top n
+    (``_bounded``), then the row's candidates the same way, the last cut
+    exact, sorted by composite."""
+    length = key.shape[-1]
+    k = _mapped(key, key_bits)
+    pbits = 31 if pos is not None else int(length - 1).bit_length()
+    j = np.arange(length)
+    t = j if pos is None else np.asarray(pos)
+    lo0 = key_bits + pbits
+    keep = n + min(slack, buf - tile - n)
+    parts = [_bounded(k[c:c + chunk], t[c:c + chunk], j[c:c + chunk], n,
+                      keep, keep, tile, buf, lo0, pbits)
+             for c in range(0, length, chunk)]
+    ck, ct, cj = (np.concatenate(a) for a in zip(*parts))
+    fk, ft, fj = _bounded(ck, ct, cj, n, keep, n, min(tile, 2048), buf, lo0,
+                          pbits)
+    order = np.argsort(_composites(fk, ft, pbits))[::-1]
+    return fj[order]
+
+
+def _two_stage_case(name, rng):
+    """(key (L,) int32, pos None / (L,) int64, n): tie-heavy rows."""
+    i32 = np.iinfo(np.int32)
+    if name == "all_equal":
+        return np.full(3000, 5, np.int32), None, 100
+    if name == "all_equal_pos":
+        return np.full(3000, -9, np.int32), \
+            rng.permutation(3000).astype(np.int64) * 5 + 3, 100
+    if name == "runs_across_chunks":  # equal runs of 333 straddle borders
+        return np.repeat(rng.integers(-3, 3, 10), 333).astype(np.int32), \
+            None, 150
+    if name == "short_chunks":  # fewer elements a chunk than n
+        return rng.integers(-4, 4, 700).astype(np.int32), None, 180
+    if name == "int32_extremes":
+        vals = np.array([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1,
+                         i32.max], np.int32)
+        return vals[rng.integers(0, 7, 2900)], None, 120
+    if name == "ascending":  # every element raises the bound
+        return np.arange(-1500, 1500).astype(np.int32), None, 90
+    raise KeyError(name)
+
+
+TWO_STAGE = ["all_equal", "all_equal_pos", "runs_across_chunks",
+             "short_chunks", "int32_extremes", "ascending"]
+
+
+@pytest.mark.parametrize("slack", [0, 17])
+@pytest.mark.parametrize("chunk", [64, 128, 1000])
+@pytest.mark.parametrize("name", TWO_STAGE)
+def test_emulated_two_stage_select_is_the_plain_version(name, chunk, slack):
+    key, pos, n = _two_stage_case(name, np.random.default_rng(
+        TWO_STAGE.index(name)))
+    want = k3.top_by_key_reference(
+        torch.from_numpy(key), None if pos is None else torch.from_numpy(pos),
+        n).numpy()
+    np.testing.assert_array_equal(want, _lexsort_top(key, pos, n))
+    # Tiles of 32 and a buffer of 256: cuts happen every few tiles.
+    got = _emulated_two_stage(key, pos, n, chunk=chunk, tile=32, buf=256,
+                              slack=slack)
+    np.testing.assert_array_equal(got, want)
+
+
+def _pre_fusion_chain(plane, n, ordering):
+    """``ops/ranking.approx_top_indices``'s generation-2 branch before its
+    re-sort moved into K3, verbatim on the plain versions: the set by the
+    full key, the estimates rebuilt from the keys, then the re-sort."""
+    key = k3.plane_keys(plane, ordering)
+    idx = k3.top_by_key_reference(key, None, n)
+    kv = torch.gather(key, -1, idx)
+    h, w = plane.shape[-2], plane.shape[-1]
+    if ordering == Ordering.LEGACY:
+        order_key = kv
+        bits = torch.where(kv < 0, (-kv) | 0x8000, kv)
+        sval = bits.to(torch.int16).view(torch.bfloat16).to(torch.float32)
+    else:
+        mag_bits = kv & 0xFFFE
+        order_key = mag_bits
+        mag = mag_bits.to(torch.int16).view(torch.bfloat16).to(torch.float32)
+        sval = torch.where((kv & 1) != 0, -mag, mag)
+    order_key = torch.where(idx == 0, tr._DC_KEY, order_key)
+    sval = torch.where(idx == 0, 0.0, sval)
+    if ordering == Ordering.ENERGY:
+        cand_c = sval
+    else:
+        cand_c = sval / tr._flat_scale(h, w, idx.device)[idx]
+    resort = tr._top_by_key(order_key, idx, n)
+    return torch.gather(idx, -1, resort), torch.gather(cand_c, -1, resort)
+
+
+@pytest.mark.parametrize("n", [1, 300, 48 * 64])
+@pytest.mark.parametrize("ordering", ORDERINGS)
+def test_generation2_plain_version_is_the_pre_fusion_chain(ordering, n):
+    plane = _signed_zero_plane(21, 2, 48, 64)
+    o = Ordering(ordering)
+    idx, est = k3.top_of_plane_reference(plane, n, o)
+    want_idx, want_est = _pre_fusion_chain(plane, n, o)
+    np.testing.assert_array_equal(idx.numpy(), want_idx.numpy())
+    # Bit for bit, signed zeros included.
+    np.testing.assert_array_equal(est.numpy().view(np.int32),
+                                  want_est.numpy().view(np.int32))
+    got_idx, got_est = tr.approx_top_indices(plane, n, o)
+    assert torch.equal(got_idx, idx)
+    np.testing.assert_array_equal(got_est.numpy().view(np.int32),
+                                  est.numpy().view(np.int32))
 
 
 def _signed_zero_plane(seed, b, h, w):
@@ -311,6 +500,24 @@ def test_single_select_is_the_tiled_route_and_jax(h, w, n, ordering):
     assert (np.diff(vals, axis=-1) == 0).any()
 
 
+@pytest.mark.parametrize("n", [50, 200])
+@pytest.mark.parametrize("h,w", [(37, 59), (64, 96)])
+@pytest.mark.parametrize("ordering", ["energy", "energy-orthogonal"])
+def test_coeff_mode_plain_version_is_top_indices_and_jax(ordering, h, w, n):
+    for plane in (_planted(h * w + n, h, w),
+                  np.random.default_rng(n).standard_normal(
+                      (2, h, w)).astype(np.float32)):
+        got = k3.top_of_coeffs_reference(torch.from_numpy(plane), n,
+                                         Ordering(ordering)).numpy()
+        np.testing.assert_array_equal(
+            got, tr.top_indices(torch.from_numpy(plane), n,
+                                Ordering(ordering)).numpy())
+        np.testing.assert_array_equal(
+            got, np.asarray(_jax_top(jnp.asarray(plane), n,
+                                     JOrdering(ordering), False)))
+        assert not (got == 0).any()
+
+
 def test_cpu_tensors_leave_k3_uncounted():
     kernels.reset_launch_counts()
     plane = _signed_zero_plane(4, 2, 48, 64)
@@ -320,5 +527,6 @@ def test_cpu_tensors_leave_k3_uncounted():
     tr.top_indices(plane.float(), 30, Ordering.LEGACY)
     k3.top_by_key(torch.zeros(3, 10, dtype=torch.int32), None, 4)
     k3.top_of_plane(plane, 5, Ordering.LEGACY)
+    k3.top_of_coeffs(plane.float(), 5, Ordering.ENERGY)
     counts = kernels.launch_counts()
-    assert counts["k3"] == 0 and counts["k3_plane"] == 0
+    assert counts["k3"] == counts["k3_plane"] == counts["k3_coeffs"] == 0
