@@ -20,6 +20,20 @@ Phases, one line of output each, any failure exits non-zero:
    version, the whole kernel within one u8 step of its plain version; its
    time, its plain version's and, as a yardstick for the product alone,
    one bf16 ``torch.matmul`` of the factors, at batch 48;
+3b. K5 (the fast tiers' read tail: the pair luma, the first pass at the
+   ranked rows only, the dots at the n indices) against its plain version
+   (K1's pair mode, then the gather-dot) within ``k5_bound``: at 48 x
+   1080p on the main path's marked pair (DEFAULT, n = 1000 ranked indices)
+   and on ±3 noise, a 12.5% resize round-trip, a crop-to-black composite
+   and an unrelated random image; at 8 x 4K and 4 x 1920 x 1080 on the
+   marked and the unrelated pairs; at 444 x 640, 640 x 444 and 37 x 59 at
+   n = 1, 1000 and 20,000; each case within ``k5_bound`` and with an f64
+   error at most twice the plain version's plus one unit
+   (``read_tail.gates``); its time at 48 x 1080p and 8 x 4K beside its
+   plain version's and the old route's (and each of its two stages), its
+   device launches per call and each one's device time from
+   ``torch.profiler``, and its bound from the distinct first-pass rows the
+   run's indices need;
 4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
    against their plain versions at 444x640, 640x444, 37x59, 48x1080x1920,
    1920x1080 and 2x2160x3840; K6a's top-1000 ranking against the plain
@@ -56,18 +70,23 @@ Phases, one line of output each, any failure exits non-zero:
    bound;
 5. the main path: ``embed_verified`` at 1080p, batch 48, n = 1000, DEFAULT
    on 1/f textures, with the kernels' launch counts from that one call
-   (K1, K4, and K3's plane mode, its re-sort inside: no key-mode launch), the
-   detection checks, the detect path's bit-equality, agreement with the
-   CPU run of the same code on a small input, a stage breakdown,
+   (K1, K4, K5 once and no K1 pair mode, and K3's plane mode, its re-sort
+   inside: no key-mode launch), the detection checks, the detect path's
+   bit-equality, K1's pair mode on its own path
+   (``extract(sparse_derived=False)``: launched once, K5 not, within 0.1
+   sigma of K5's read), agreement with the CPU run of the same code on a
+   small input, a stage breakdown (K5's read tail, and beside it the old
+   route's two stages),
    images/s from the port's bench harness (``bench.run_verified_bench``:
    random u8, each call marking the last call's output, the median of
    three timed chains), and the device's idle share under
    ``torch.profiler``;
-6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, its pair
-   mode and K4 launched in the one call, K6 not;
+6. the HIGH path, the same at ``Precision.HIGH``: K1's high mode, K5 and
+   K4 launched in the one call, K1's pair mode and K6 not;
 6b. rank generation 1 (``rank_version=1``), the same checks at DEFAULT and
    at HIGH (K1, its high mode at HIGH, K4, and K3's key mode at least
-   twice launched: its record's launches come from the DEFAULT call),
+   twice launched, K5 once: its record's launches come from the DEFAULT
+   call),
    its rate from the harness's ``_timed_chain``;
 6c. the custom callables on 4 x 1080p at each tier, each a reimplementation
    of a built-in held to it: Option2 as ``custom_insert`` bit for bit, its
@@ -110,8 +129,8 @@ Phases, one line of output each, any failure exits non-zero:
    skipped (this host's decoder is then PIL);
 12. ``parallel/`` (``parallel_*`` lines): NCCL with one rank per card, a
    group of one in this process: DP ``embed``/``extract`` at 48 x 1080p
-   at DEFAULT and HIGHEST bit-equal to the single-device call (K1 and K4,
-   or K6a and K7, launched), ``embed_spatial``/``extract_spatial`` of one
+   at DEFAULT and HIGHEST bit-equal to the single-device call (K1, K5 and
+   K4, or K6a and K7, launched), ``embed_spatial``/``extract_spatial`` of one
    4K image at HIGHEST within one u8 step of the single-device embed on
    under 2% of values and above 6 sigma, the corpus-sharded bench at its
    defaults (32 4K images, chunks of 8, HIGHEST; own marks above 6
@@ -476,6 +495,163 @@ def phase_k4() -> dict:
         product_matmul_ms=product, share_of_bound=bd["bound_ms"] / ms, **bd)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "library_ms": None, **bd}
+
+
+def _compare_k5(case: str, derived, base, idx) -> float:
+    """K5 on one pair against its plain version, through both of
+    ``read_tail.gates``: within ``k5_bound``, and an f64 error (in units of
+    2^-24 times the two sums' absolute terms) at most twice the plain
+    version's plus one unit; logs the readings, raises outside either gate,
+    returns max |err|."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import read_tail as k5
+
+    t = k5.read_tail(derived, base, idx)
+    torch.cuda.synchronize()
+    g = k5.gates(t, derived, base, idx)
+    log("k5", case=case, shape=list(derived.shape[:3]), n=idx.shape[-1], **g)
+    if not (g["within_bound"] and g["within_f64"] and g["finite"]):
+        raise AssertionError(f"K5 {case} {tuple(derived.shape)}: outside "
+                             "its gates")
+    return g["max_abs_err"]
+
+
+def _k5_pairs(base):
+    """The derived images K5 is held on, from small to full-range
+    differences: ±3 noise, a 12.5% resize round-trip, the half-size centre
+    crop composited on black, an unrelated random image."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(base.shape[1])
+    yield "noise3", (base.int() + torch.randint(
+        -3, 4, base.shape, generator=gen, device="cuda")).clamp(
+            0, 255).to(torch.uint8)
+    h, w = base.shape[1:3]
+    x = base.permute(0, 3, 1, 2).float()
+    small = F.interpolate(x, size=(max(h // 8, 1), max(w // 8, 1)),
+                          mode="bilinear", antialias=True)
+    back = F.interpolate(small, size=(h, w), mode="bilinear")
+    yield "resize_12.5", back.round().clamp(0, 255).to(torch.uint8).permute(
+        0, 2, 3, 1).contiguous()
+    del x, small, back
+    crop = torch.zeros_like(base)
+    crop[:, h // 4:h // 4 + h // 2, w // 4:w // 4 + w // 2] = \
+        base[:, h // 4:h // 4 + h // 2, w // 4:w // 4 + w // 2]
+    yield "crop_black", crop
+    yield "unrelated", torch.randint(0, 256, base.shape, generator=gen,
+                                     device="cuda", dtype=torch.uint8)
+
+
+def _k5_device(fn, calls: int = 3) -> dict:
+    """From torch.profiler over ``calls`` calls after a warm-up: the device
+    launches recorded per call, and each kernel's [mean device ms a
+    launch, launches recorded] (a launch the profiler failed to record
+    shows as a count short of ``calls``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            rec = per.setdefault(name.split("<")[0].split("(")[0], [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    return {"device_launches_per_call": sum(n for _, n in per.values())
+            / calls, "device_ms": {k: [ms / n, n] for k, (ms, n) in
+                                   per.items()}}
+
+
+def phase_k5() -> dict:
+    """K5 (the read tail) against its plain version through both of
+    ``read_tail.gates`` (within ``k5_bound``; the f64 error):
+    at 48 x 1080p on the main path's marked pair (DEFAULT, n = 1000 ranked
+    indices) and on ±3 noise, a resize round-trip, a crop-to-black
+    composite and an unrelated image; at 8 x 4K and 4 x 1920 x 1080
+    (portrait) on the marked and the unrelated pairs; at 444 x 640, 640 x
+    444 and 37 x 59 at n = 1, 1000 and 20,000 (indices with repeats); then
+    its time at 48 x 1080p and 8 x 4K beside its plain version's and the
+    old route's (K1's pair mode, then the plain gather-dot), its device
+    launches and bound: the record of ``read_tail``."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import Precision
+    from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+    from spread_spectrum_watermarking_torch.kernels import read_tail as k5
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    worst, times = 0.0, {}
+    cfg = wm.WriteConfig(precision=Precision.DEFAULT)
+    rcfg = wm.ReadConfig(precision=Precision.DEFAULT)
+    # The main path's and phase 9's textures (seeds 30 and 50), and a
+    # portrait batch.
+    for seed, b, h, w, all_pairs in ((30, 48, 1080, 1920, True),
+                                     (50, 8, 2160, 3840, False),
+                                     (65, 4, 1920, 1080, False)):
+        base = textures(seed, b, h, w)
+        marks = torch.randn((b, 1, N), generator=gen, device="cuda")
+        marked = wm.embed(base, marks, cfg)
+        idx, _ = wm.rank_base(base, N, rcfg)
+        worst = max(worst, _compare_k5("marked", marked, base, idx))
+        for case, derived in _k5_pairs(base):
+            if all_pairs or case == "unrelated":
+                worst = max(worst, _compare_k5(case, derived, base, idx))
+            del derived
+        if b in (48, 8):
+            ax = dct.shorter_axis(h, w)
+            td = k1.luma_pass(marked, base)
+            times[b] = {
+                "ms": time_ms(lambda: k5.read_tail(marked, base, idx), 5),
+                "plain_ms": time_ms(
+                    lambda: k5.read_tail_reference(marked, base, idx), 5),
+                "old_route_ms": time_ms(lambda: dct.dct2_dot_at(
+                    k1.luma_pass(marked, base), idx, contracted_axis=ax,
+                    precision=Precision.DEFAULT), 5),
+                "old_k1_pair_ms": time_ms(
+                    lambda: k1.luma_pass(marked, base), 5),
+                "old_gather_dot_ms": time_ms(lambda: dct.dct2_dot_at(
+                    td, idx, contracted_axis=ax,
+                    precision=Precision.DEFAULT), 5),
+                **_k5_device(lambda: k5.read_tail(marked, base, idx))}
+            del td
+            px, s, l = b * h * w, min(h, w), max(h, w)
+            # The function needs one first-pass row, S L long, per distinct
+            # (image, coordinate along S) of the indices, and an L-long dot
+            # per index; two u8 images in, the int64 indices in, f32 out,
+            # the two bf16 bases.
+            a = (idx // w if h <= w else idx % w).sort(-1).values
+            rows = b + int((a.diff(dim=-1) != 0).sum())
+            times[b].update(distinct_rows=rows, kernel_rows=b * N,
+                            **bound(2 * rows * s * l + 2 * b * N * l,
+                                    6 * px + 12 * b * N
+                                    + 2 * (s * s + l * l), BF16_PEAK))
+            log("k5_time", shape=[b, h, w], n=N, **times[b],
+                share_of_bound=times[b]["bound_ms"] / times[b]["ms"])
+        del base, marked, idx
+        torch.cuda.empty_cache()
+    for h, w in ((444, 640), (640, 444), (37, 59)):
+        base = textures(70 + h, 2, h, w)
+        for n in (1, 1000, 20000):
+            idx = torch.randint(0, h * w, (2, n), generator=gen,
+                                device="cuda")
+            for case, derived in _k5_pairs(base):
+                if case in ("noise3", "unrelated"):
+                    worst = max(worst, _compare_k5(case, derived, base, idx))
+    rec = times[48]
+    return {"max_abs_err": worst, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "library_ms": None, "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"]}
 
 
 def _compare_k6(x, inverse: bool) -> float:
@@ -1201,20 +1377,24 @@ def _median_stages(stages: dict) -> dict:
 
 def _stage_breakdown(rgb, marks, cfg) -> dict:
     """ms per stage of one fast-tier embed_verified call, CUDA events
-    around each, the median of ``STAGE_ROUNDS`` rounds. The read tail runs
-    at DEFAULT at both fast tiers."""
+    around each, the median of ``STAGE_ROUNDS`` rounds, and their sum. The
+    read tail runs at DEFAULT at both fast tiers: K5
+    (``k5_read_tail``); beside it, on the same inputs and not in the sum,
+    the route it replaced, K1's pair mode and the plain gather-dot
+    (``old_read_tail_ms``)."""
     from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels.embed_epilogue import (
         embed_epilogue)
     from spread_spectrum_watermarking_torch.kernels.luma_pass import luma_pass
+    from spread_spectrum_watermarking_torch.kernels.read_tail import read_tail
     from spread_spectrum_watermarking_torch.models import pipeline as tp
     from spread_spectrum_watermarking_torch.ops import dct, modulation, ranking
 
     h, w = rgb.shape[1:3]
     ax = dct.shorter_axis(h, w)
-    stages = {}
+    stages, old = {}, {}
     box = {}
-    run = _stage_timer(stages)
+    run, run_old = _stage_timer(stages), _stage_timer(old)
 
     first = "k1_high_first_pass" if cfg.precision is Precision.HIGH \
         else "k1_first_pass"
@@ -1229,11 +1409,14 @@ def _stage_breakdown(rgb, marks, cfg) -> dict:
             cfg.insertion.method, cfg.insertion.alpha) - vals)
         box["marked"] = run("k4_epilogue", lambda: embed_epilogue(
             rgb, box["delta"], idx))
-        box["td"] = run("k1_pair_pass",
-                        lambda: luma_pass(box["marked"], rgb))
-        run("read_dot_at", lambda: dct.dct2_dot_at(
+        run("k5_read_tail", lambda: read_tail(box["marked"], rgb, idx))
+        box["td"] = run_old("k1_pair_pass",
+                            lambda: luma_pass(box["marked"], rgb))
+        run_old("read_dot_at", lambda: dct.dct2_dot_at(
             box["td"], idx, contracted_axis=ax, precision=Precision.DEFAULT))
-    return _median_stages(stages)
+    out = _median_stages(stages)
+    return {**out, "sum_ms": sum(out.values()),
+            "old_read_tail_ms": _median_stages(old)}
 
 
 def _kernel_counts() -> dict:
@@ -1252,7 +1435,7 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
                     iters: int = 64) -> None:
     """One fast tier's path at 1080p batch 48 and rank generation
     ``rank_version``: ``embed_verified`` with the launch counts of that one
-    call (DEFAULT: K1 and K4; HIGH: K1's high mode, its pair mode and K4;
+    call (DEFAULT: K1, K5 and K4; HIGH: K1's high mode, K5 and K4;
     never K6; K3 over the plane, its re-sort inside, at generation 2, twice
     over keys at generation 1), then the checks, the stages, the rate (the
     harness's chains of ``iters`` calls) and the profile. ``recs``: the
@@ -1276,10 +1459,12 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
     marked, ext = wm.embed_verified(rgb, marks, cfg)
     torch.cuda.synchronize()
     counts = _kernel_counts()
+    # The read tail is one K5 call, never K1's pair mode.
+    read = counts["k5"] == 1 and counts["k1_pair"] == 0
     if high:
-        ran = counts["k1_high"] > 0 and counts["k1"] > 0 and counts["k4"] > 0
+        ran = counts["k1_high"] > 0 and read and counts["k4"] > 0
     else:
-        ran = (counts["k1"] > counts["k1_pair"] > 0 and counts["k4"] > 0
+        ran = (counts["k1"] > 0 and read and counts["k4"] > 0
                and counts["k1_high"] == 0)
     if recs is not None and rank_version == 1:
         recs["topk_select"]["launches"] = counts["k3"]
@@ -1287,7 +1472,7 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
         recs["luma_pass_high"]["launches"] = counts["k1_high"]
     elif recs is not None:
         recs["luma_pass"]["launches"] = counts["k1"] - counts["k1_pair"]
-        recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
+        recs["read_tail"]["launches"] = counts["k5"]
         recs["embed_epilogue"]["launches"] = counts["k4"]
         recs["topk_select_plane"]["launches"] = counts["k3_plane"]
     # K3: generation 2 is one call over the plane, its re-sort inside;
@@ -1310,6 +1495,8 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
     log(pre + ("high_path" if high else "main_path"), shape=[48, 1080, 1920],
         n=N, rank_version=rank_version, launches=counts, detect_bit_equal=True,
         share_pixels_changed=float((marked != rgb).float().mean()), **det)
+    if not high and rank_version == 2:
+        _pair_path(rgb, marked, ext, marks, rcfg, gen, recs)
 
     # The same code on the CPU (plain kernel versions), small input.
     small = textures(40, 2, 96, 128)
@@ -1341,6 +1528,32 @@ def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
         shape=[48, 1080, 1920], n=N, **rate)
     log(f"{tag}profile", shape=[48, 1080, 1920], n=N,
         **_device_profile(rand, marks, cfg))
+
+
+def _pair_path(rgb, marked, ext, marks, rcfg, gen, recs) -> None:
+    """K1's pair mode on its own path, ``extract(sparse_derived=False)``
+    (the full first pass, then the full second pass): launched once there
+    and K5 not, within 0.1 sigma of the main path's read and above 6
+    sigma. ``recs``: K1 pair's record takes this call's launches."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+
+    _zero_kernel_counts()
+    full = wm.extract(rgb, marked, N, rcfg, sparse_derived=False)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    if counts["k1_pair"] != 1 or counts["k5"] != 0:
+        raise AssertionError(f"extract(sparse_derived=False) launched {counts}")
+    if recs is not None:
+        recs["luma_pass_pair"]["launches"] = counts["k1_pair"]
+    det = _check_detection("extract(sparse_derived=False)", full, marks, gen)
+    sims = [torch.diagonal(wm.similarity(e, marks[:, 0])) for e in (ext, full)]
+    gap = float((sims[0] - sims[1]).abs().max())
+    log("pair_path", shape=list(rgb.shape[:3]), n=N, launches=counts,
+        max_sim_gap_sigma=gap, **det)
+    if not gap <= 0.1:
+        raise AssertionError(f"the full read is {gap} sigma from K5's")
 
 
 def phase_fast_options() -> None:
@@ -1383,7 +1596,7 @@ def phase_custom() -> None:
     """The custom callables on 4 x 1080p at each tier, each reimplementing
     a built-in and held to it, with the launch counts of each call: the
     fast tiers' embed runs K1 and K4 (K1's high mode at HIGH) and their
-    read K1 and its pair mode; HIGHEST's embed K6a and K7 once, its read
+    read K1 and K5; HIGHEST's embed K6a and K7 once, its read
     K6a; every call K3."""
     import torch
 
@@ -1411,7 +1624,7 @@ def phase_custom() -> None:
         first = (counts["k1_high"] if high
                  else counts["k1"] - counts["k1_pair"])
         return first > 0 and (counts["k4"] > 0 if write
-                              else counts["k1_pair"] > 0)
+                              else counts["k5"] > 0)
 
     for p in (wm.Precision.DEFAULT, wm.Precision.HIGH, wm.Precision.HIGHEST):
         fast, high = p is not wm.Precision.HIGHEST, p is wm.Precision.HIGH
@@ -1967,7 +2180,7 @@ def _parallel_nccl() -> dict:
             (48, 1, N)).astype(np.float32)
         rgb_dev, marks_dev = torch.from_numpy(rgb).cuda(), \
             torch.from_numpy(marks).cuda()
-        for p, names in ((wm.Precision.DEFAULT, ("k1", "k1_pair", "k4",
+        for p, names in ((wm.Precision.DEFAULT, ("k1", "k5", "k4",
                                                   "k3_plane")),
                          (wm.Precision.HIGHEST, ("k6a", "k7", "k3_coeffs"))):
             cfg, rcfg = wm.WriteConfig(precision=p), wm.ReadConfig(precision=p)
@@ -2258,6 +2471,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4_rec.update(phase_k4())
     torch.cuda.empty_cache()
+    k5_rec = {"name": "read_tail", "route": "cuda",
+              "source": "spread_spectrum_watermarking_torch/csrc/read_tail.cu",
+              "replaces": "spread_spectrum_watermarking_tpu/models/pipeline.py"
+                          ":287 (dct2_dot_at, XLA; no pallas_call)"}
+    k5_rec.update(phase_k5())
+    torch.cuda.empty_cache()
     k6_src = "spread_spectrum_watermarking_torch/csrc/dct2d_fused.cu"
     k6_tpu = "spread_spectrum_watermarking_tpu/ops/dct_pallas.py"
     k6a_rec = {"name": "dct2_2d_fused", "route": "cuda", "source": k6_src,
@@ -2298,8 +2517,8 @@ def main() -> int:
     k3p_rec.update(k3_plane)
     k3c_rec.update(k3_coeffs)
     torch.cuda.empty_cache()
-    recs = {r["name"]: r for r in (k1_rec, k1p_rec, k1h_rec, k4_rec, k3_rec,
-                                   k3p_rec)}
+    recs = {r["name"]: r for r in (k1_rec, k1p_rec, k1h_rec, k4_rec, k5_rec,
+                                   k3_rec, k3p_rec)}
     phase_fast_path(wm.Precision.DEFAULT, recs)
     torch.cuda.empty_cache()
     phase_fast_path(wm.Precision.HIGH, recs)
@@ -2327,9 +2546,9 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in
-                                  (k1_rec, k1p_rec, k1h_rec, k4_rec, k6a_rec,
-                                   k6b_rec, k1f_rec, k1fh_rec, k7_rec,
-                                   k3_rec, k3p_rec, k3c_rec)]}))
+                                  (k1_rec, k1p_rec, k1h_rec, k4_rec, k5_rec,
+                                   k6a_rec, k6b_rec, k1f_rec, k1fh_rec,
+                                   k7_rec, k3_rec, k3p_rec, k3c_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,9 +38,11 @@ REPS = 5
 U = 2.0 ** -24
 
 
-def _ptxas(pkg, names=("luma_pass.cu", "fold_pass.cu")) -> list[str]:
+def _ptxas(pkg, names=("luma_pass.cu", "fold_pass.cu", "read_tail.cu")
+           ) -> list[str]:
     """ptxas's register, spill and shared-memory lines for the package's
-    sources ``names`` (K1's and K1f's by default)."""
+    sources ``names`` (K1's, K1f's and K5's, which shares K1's pair tile
+    pass, by default)."""
     from spread_spectrum_watermarking_torch.kernels import _build
 
     lines = []

@@ -41,117 +41,34 @@
 // the bf16 plane, 2 x 4.1 MB an image at 1080p (0.12 ms of device-memory
 // time for 48 images; twice that at HIGH, with the lo part). The second is
 // the bulk-copy-fed wgmma product against the basis's cached tile image.
-// Pixels are read one byte at a time, so any u8 view (one byte into its
-// storage) is read as it lies; each thread has eight pixels' loads in
-// flight at once.
+// The tile pass (csrc/luma_tiles.cuh, shared with K5's read tail) reads
+// pixels one byte at a time, so any u8 view (one byte into its storage) is
+// read as it lies; each thread has eight pixels' loads in flight at once.
 // Measured at 48x1080x1920 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py,
 // scripts/k1_ab.py --profile): single 0.74 ms, pair 0.90, high 1.32, of
 // which the tile pass takes 0.24, 0.39 and 0.31.
-#include "wgmma_tile.cuh"
+#include "luma_tiles.cuh"
 
 namespace {
 
+using ssw::luma::kTileThreads;
+using ssw::luma::Mode;
 using ssw::wg::cdiv;
 using ssw::wg::kDepth;
 using ssw::wg::kRows;
 using ssw::wg::kTile;
 
-constexpr float kInv255 = 0x1.010102p-8f;      // f32(1 / 255)
-constexpr float kInv25500 = 0x1.48f70cp-15f;  // f32(1 / 25500)
-constexpr int kTileThreads = 256;
-
-enum class Mode { kSingle, kPair, kHigh };
-
-template <Mode kMode>
-constexpr int kParts = kMode == Mode::kHigh ? 2 : 1;
-
-// The luma of one pixel: p (and q, pair mode: the base) its three bytes.
-template <Mode kMode>
-__device__ __forceinline__ float luma_px(const uint8_t* p, const uint8_t* q) {
-  if (kMode == Mode::kPair) {
-    const int d0 = int(p[0]) - int(q[0]);
-    const int d1 = int(p[1]) - int(q[1]);
-    const int d2 = int(p[2]) - int(q[2]);
-    return __fmul_rn(float((30 * d0 + 59 * d1) + 11 * d2), kInv25500);
-  }
-  const float r = __fmul_rn(float(p[0]), kInv255);
-  const float g = __fmul_rn(float(p[1]), kInv255);
-  const float b = __fmul_rn(float(p[2]), kInv255);
-  return __fmaf_rn(b, 0.11f, __fmaf_rn(g, 0.59f, __fmul_rn(r, 0.30f)));
-}
-
-// The luma of one image as the mainloop's operand tile image: rows r, k
-// along the contraction (r = w, k = h in landscape; r = h, k = w in
-// portrait), tile (blockIdx.y, blockIdx.x) of image blockIdx.z; parts
-// hi (and lo, high mode) part_stride apart, images kP * part_stride apart.
-// The tile's pixels are read with neighbouring threads on neighbouring w
-// (the image's contiguous axis) into an f32 tile in shared memory, which
-// is then read across, 8 threads to each 128-byte row of the tile image:
-// both the reads and the writes are whole segments, in either orientation.
+// The luma of one image as the mainloop's operand tile image
+// (csrc/luma_tiles.cuh): tile (blockIdx.y, blockIdx.x) of image blockIdx.z.
 template <Mode kMode, bool kLandscape>
 __global__ void __launch_bounds__(kTileThreads)
 luma_tiles_kernel(const uint8_t* __restrict__ rgb,
                   const uint8_t* __restrict__ base,
                   __nv_bfloat16* __restrict__ tiles, int h, int w,
                   int ktiles, long long part_stride) {
-  constexpr int kP = kParts<kMode>;
-  // The image region: kDepth rows h by kRows columns w in landscape, kRows
-  // by kDepth in portrait; its luma at ys[row * pitch + col].
-  constexpr int kCols = kLandscape ? kRows : kDepth;
-  constexpr int kPitch = kCols + 1;
-  __shared__ float ys[kRows * (kDepth + 1)];  // the larger of the two
-  const int h0 = (kLandscape ? blockIdx.x * kDepth : blockIdx.y * kRows);
-  const int w0 = (kLandscape ? blockIdx.y * kRows : blockIdx.x * kDepth);
-  const size_t img = size_t(blockIdx.z) * h * w;
-  // Batches of kBatch pixels a thread: every byte of a batch is loaded
-  // before any is used, so the loads are in flight together. Pixels past
-  // the image read as zeros, whose luma (and difference) is 0.
-  constexpr int kBatch = 8;
-  constexpr int kPx = kMode == Mode::kPair ? 6 : 3;
-  for (int i0 = 0; i0 < kTile / kTileThreads; i0 += kBatch) {
-    uint8_t px[kBatch][kPx];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = threadIdx.x + (i0 + u) * kTileThreads;
-      const int gh = h0 + e / kCols, gw = w0 + e % kCols;
-      const bool in = gh < h && gw < w;
-      const size_t at = in ? 3 * (img + size_t(gh) * w + gw) : 0;
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        px[u][b] = in ? rgb[at + b] : 0;
-        if (kMode == Mode::kPair) px[u][3 + b] = in ? base[at + b] : 0;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = threadIdx.x + (i0 + u) * kTileThreads;
-      ys[(e / kCols) * kPitch + e % kCols] =
-          luma_px<kMode>(px[u], px[u] + (kPx - 3));
-    }
-  }
-  __syncthreads();
-  __nv_bfloat16* tile = tiles + blockIdx.z * (kP * part_stride) +
-                        (size_t(blockIdx.y) * ktiles + blockIdx.x) * kTile;
-#pragma unroll
-  for (int i = 0; i < kTile / 8 / kTileThreads; ++i) {
-    const int e = threadIdx.x + i * kTileThreads;
-    const int r = e / (kDepth / 8), c = e % (kDepth / 8);
-    __align__(16) __nv_bfloat16 hi[8];
-    __align__(16) __nv_bfloat16 lo[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = 8 * c + j;
-      const float y = kLandscape ? ys[k * kPitch + r] : ys[r * kPitch + k];
-      hi[j] = __float2bfloat16_rn(y);
-      if (kP == 2)
-        lo[j] = __float2bfloat16_rn(__fsub_rn(y, __bfloat162float(hi[j])));
-    }
-    const int at = ssw::wg::swizzled(r, 8 * c);
-    *reinterpret_cast<uint4*>(tile + at) = *reinterpret_cast<const uint4*>(hi);
-    if (kP == 2)
-      *reinterpret_cast<uint4*>(tile + part_stride + at) =
-          *reinterpret_cast<const uint4*>(lo);
-  }
+  ssw::luma::luma_tile<kMode, kLandscape>(rgb, base, tiles, h, w, ktiles,
+                                          part_stride, blockIdx.y, blockIdx.x,
+                                          blockIdx.z);
 }
 
 // rgb (base): (batch, h, w, 3) u8; basis: the tile image of the bf16 DCT-II
@@ -162,7 +79,7 @@ int launch(const uint8_t* rgb, const uint8_t* base,
            const __nv_bfloat16* basis, __nv_bfloat16* work,
            long long work_elems, __nv_bfloat16* out, int batch, int h, int w,
            cudaStream_t stream) {
-  constexpr int kP = kParts<kMode>;
+  constexpr int kP = ssw::luma::kParts<kMode>;
   const bool landscape = h <= w;
   const int n = landscape ? h : w;                   // the contraction
   const int rows = landscape ? w : h;                // the luma tiles' rows

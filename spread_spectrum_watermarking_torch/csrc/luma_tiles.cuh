@@ -1,0 +1,134 @@
+// The luma tile pass shared by K1 (csrc/luma_pass.cu) and K5
+// (csrc/read_tail.cu): u8 RGB (or, in pair mode, the exact integer
+// difference of two u8 images) -> luma -> bf16, written as one tile of the
+// mainloop's operand tile image (csrc/wgmma_tile.cuh): rows r along the
+// longer image axis, k along the contraction, the shorter (r = w, k = h in
+// landscape; r = h, k = w in portrait).
+//
+// Rounding points follow the JAX package's XLA code as it compiles on the
+// CPU under jit:
+//   single, high: y = fma(b, 0.11f, fma(g, 0.59f, r * 0.30f)) with
+//           c = u8 * f32(1/255) (the order XLA's CPU einsum sums in, and
+//           the product XLA puts in place of u8 / 255; bit-equal over all
+//           colours)
+//   pair:   y = ((30 dR + 59 dG) + 11 dB) * f32(1/25500) (exact numerator;
+//           XLA's product in place of the division)
+// Single and pair mode round y to bf16 (RNE). High mode keeps y in f32 and
+// splits it as the TPU's bf16x3 does: y_hi = bf16(y), y_lo = bf16(y - y_hi)
+// (the subtraction is exact). Every f32 op is an explicit _rn intrinsic, so
+// nvcc can neither fuse nor split it.
+#pragma once
+
+#include "wgmma_tile.cuh"
+
+namespace ssw {
+namespace luma {
+
+constexpr float kInv255 = 0x1.010102p-8f;      // f32(1 / 255)
+constexpr float kInv25500 = 0x1.48f70cp-15f;  // f32(1 / 25500)
+constexpr int kTileThreads = 256;              // threads of a tile's block
+
+enum class Mode { kSingle, kPair, kHigh };
+
+template <Mode kMode>
+constexpr int kParts = kMode == Mode::kHigh ? 2 : 1;
+
+namespace {  // one copy per source that includes this header
+
+// The luma of one pixel: p (and q, pair mode: the base) its three bytes.
+template <Mode kMode>
+__device__ __forceinline__ float luma_px(const uint8_t* p, const uint8_t* q) {
+  if (kMode == Mode::kPair) {
+    const int d0 = int(p[0]) - int(q[0]);
+    const int d1 = int(p[1]) - int(q[1]);
+    const int d2 = int(p[2]) - int(q[2]);
+    return __fmul_rn(float((30 * d0 + 59 * d1) + 11 * d2), kInv25500);
+  }
+  const float r = __fmul_rn(float(p[0]), kInv255);
+  const float g = __fmul_rn(float(p[1]), kInv255);
+  const float b = __fmul_rn(float(p[2]), kInv255);
+  return __fmaf_rn(b, 0.11f, __fmaf_rn(g, 0.59f, __fmul_rn(r, 0.30f)));
+}
+
+// Tile (rt, kt) of image `image`'s luma tile image, written by a block of
+// kTileThreads threads; parts hi (and lo, high mode) part_stride apart,
+// images kP * part_stride apart. The tile's pixels are read with
+// neighbouring threads on neighbouring w (the image's contiguous axis) into
+// an f32 tile in shared memory, which is then read across, 8 threads to
+// each 128-byte row of the tile image: both the reads and the writes are
+// whole segments, in either orientation. Pixels are read one byte at a
+// time, so any u8 view (one byte into its storage) is read as it lies; each
+// thread has eight pixels' loads in flight at once.
+template <Mode kMode, bool kLandscape>
+__device__ __forceinline__ void luma_tile(const uint8_t* __restrict__ rgb,
+                                          const uint8_t* __restrict__ base,
+                                          __nv_bfloat16* __restrict__ tiles,
+                                          int h, int w, int ktiles,
+                                          long long part_stride, int rt,
+                                          int kt, int image) {
+  using wg::kDepth;
+  using wg::kRows;
+  using wg::kTile;
+  constexpr int kP = kParts<kMode>;
+  // The image region: kDepth rows h by kRows columns w in landscape, kRows
+  // by kDepth in portrait; its luma at ys[row * pitch + col].
+  constexpr int kCols = kLandscape ? kRows : kDepth;
+  constexpr int kPitch = kCols + 1;
+  __shared__ float ys[kRows * (kDepth + 1)];  // the larger of the two
+  const int h0 = (kLandscape ? kt * kDepth : rt * kRows);
+  const int w0 = (kLandscape ? rt * kRows : kt * kDepth);
+  const size_t img = size_t(image) * h * w;
+  // Batches of kBatch pixels a thread: every byte of a batch is loaded
+  // before any is used, so the loads are in flight together. Pixels past
+  // the image read as zeros, whose luma (and difference) is 0.
+  constexpr int kBatch = 8;
+  constexpr int kPx = kMode == Mode::kPair ? 6 : 3;
+  for (int i0 = 0; i0 < kTile / kTileThreads; i0 += kBatch) {
+    uint8_t px[kBatch][kPx];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + (i0 + u) * kTileThreads;
+      const int gh = h0 + e / kCols, gw = w0 + e % kCols;
+      const bool in = gh < h && gw < w;
+      const size_t at = in ? 3 * (img + size_t(gh) * w + gw) : 0;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        px[u][b] = in ? rgb[at + b] : 0;
+        if (kMode == Mode::kPair) px[u][3 + b] = in ? base[at + b] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + (i0 + u) * kTileThreads;
+      ys[(e / kCols) * kPitch + e % kCols] =
+          luma_px<kMode>(px[u], px[u] + (kPx - 3));
+    }
+  }
+  __syncthreads();
+  __nv_bfloat16* tile = tiles + image * (kP * part_stride) +
+                        (size_t(rt) * ktiles + kt) * kTile;
+#pragma unroll
+  for (int i = 0; i < kTile / 8 / kTileThreads; ++i) {
+    const int e = threadIdx.x + i * kTileThreads;
+    const int r = e / (kDepth / 8), c = e % (kDepth / 8);
+    __align__(16) __nv_bfloat16 hi[8];
+    __align__(16) __nv_bfloat16 lo[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = 8 * c + j;
+      const float y = kLandscape ? ys[k * kPitch + r] : ys[r * kPitch + k];
+      hi[j] = __float2bfloat16_rn(y);
+      if (kP == 2)
+        lo[j] = __float2bfloat16_rn(__fsub_rn(y, __bfloat162float(hi[j])));
+    }
+    const int at = wg::swizzled(r, 8 * c);
+    *reinterpret_cast<uint4*>(tile + at) = *reinterpret_cast<const uint4*>(hi);
+    if (kP == 2)
+      *reinterpret_cast<uint4*>(tile + part_stride + at) =
+          *reinterpret_cast<const uint4*>(lo);
+  }
+}
+
+}  // namespace
+}  // namespace luma
+}  // namespace ssw

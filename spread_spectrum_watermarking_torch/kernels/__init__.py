@@ -10,12 +10,13 @@ them to 0.
 
 def _modules():
     from . import add_quantize, dct2d_fused, embed_epilogue, fold_pass
-    from . import luma_pass, topk_select
+    from . import luma_pass, read_tail, topk_select
 
     return {"k1": (luma_pass, "LAUNCHES"), "k1_pair": (luma_pass,
                                                        "PAIR_LAUNCHES"),
             "k1_high": (luma_pass, "HIGH_LAUNCHES"),
             "k4": (embed_epilogue, "LAUNCHES"),
+            "k5": (read_tail, "LAUNCHES"),
             "k6a": (dct2d_fused, "FORWARD_LAUNCHES"),
             "k6b": (dct2d_fused, "INVERSE_LAUNCHES"),
             "k1f": (fold_pass, "LAUNCHES"),
@@ -28,8 +29,8 @@ def _modules():
 
 def launch_counts() -> dict:
     """Every kernel's launch count in this process, by its short name
-    (``k1``, ``k1_pair``, ``k1_high``, ``k4``, ``k6a``, ``k6b``, ``k1f``,
-    ``k1f_high``, ``k7``, ``k3``, ``k3_plane``, ``k3_coeffs``)."""
+    (``k1``, ``k1_pair``, ``k1_high``, ``k4``, ``k5``, ``k6a``, ``k6b``,
+    ``k1f``, ``k1f_high``, ``k7``, ``k3``, ``k3_plane``, ``k3_coeffs``)."""
     return {k: getattr(m, a) for k, (m, a) in _modules().items()}
 
 

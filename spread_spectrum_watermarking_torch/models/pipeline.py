@@ -26,8 +26,10 @@ on the card as follows:
 3. exact top-n on sign-in-LSB keys (``ops.ranking``);
 4. modulation of the n values (``ops.modulation``);
 5. epilogue, sparse bf16 inverse DCT added to the u8 image: kernel K4;
-6. read tail (:func:`_extract_fast_tail`): K1's pair mode, then a
-   gather-dot at the n indices, at DEFAULT for both tiers.
+6. read tail (:func:`_extract_fast_tail`): kernel K5
+   (``..kernels.read_tail``), the pair luma's first pass at the ranked
+   rows only and the dots at the n indices, at DEFAULT for both tiers; K1's
+   pair mode and the full second pass with ``sparse_derived=False``.
 
 Float images, float output (``quantize=False``), the full inverse
 (``sparse_idct=False``) and the prepared base/derived pair run the JAX
@@ -66,6 +68,7 @@ from ..kernels.add_quantize import add_quantize
 from ..kernels.dct2d_fused import inverse_scale
 from ..kernels.embed_epilogue import delta_plane, embed_epilogue
 from ..kernels.luma_pass import luma_pass
+from ..kernels.read_tail import read_tail
 from ..ops import colorspace, dct, modulation, ranking
 
 
@@ -253,10 +256,13 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
     DEFAULT for both fast tiers, as in the JAX package.
 
     The derived image is never transformed on its own: the first pass runs
-    on ``luma(derived) - luma(base)`` (K1's pair mode from the exact integer
-    difference for u8 pairs; otherwise the difference of the f32 lumas and
-    a plain bf16 pass), and the second pass only at the n indices (in full,
-    then gathered, with ``sparse_second=False``). A ``custom_extract``
+    on ``luma(derived) - luma(base)`` (from the exact integer difference for
+    u8 pairs; otherwise the difference of the f32 lumas and a plain bf16
+    pass), and the second pass only at the n indices (in full, then
+    gathered, with ``sparse_second=False``). A u8 pair's sparse read is one
+    call of kernel K5 (``read_tail``), which runs the first pass only at
+    the ranked rows; with ``sparse_second=False`` the first pass is K1's
+    pair mode over the whole plane. A ``custom_extract``
     sees ``(idx, base_vals, base_vals + num)``, as in the JAX package: the
     derived values rebuilt from the base's estimates and the delta.
     """
@@ -265,19 +271,24 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
                          f"{tuple(derived.shape)} differ in shape")
     h, w = base.shape[-3], base.shape[-2]
     ax = dct.shorter_axis(h, w)
-    if base.dtype == torch.uint8 and derived.dtype == torch.uint8:
-        td = luma_pass(derived.contiguous(), base.contiguous())
+    u8 = base.dtype == torch.uint8 and derived.dtype == torch.uint8
+    if u8 and sparse_second:
+        num = read_tail(derived.contiguous(), base.contiguous(), idx)
     else:
-        td = dct.dct2_pass(colorspace.luma_diff(base, derived).to(
-            torch.bfloat16), axis=ax, precision=Precision.DEFAULT,
-            out_dtype=torch.bfloat16)
-    if sparse_second:
-        num = dct.dct2_dot_at(td, idx, contracted_axis=ax,
-                              precision=Precision.DEFAULT)
-    else:
-        other = -1 if ax == -2 else -2
-        dplane = dct.dct2_pass(td, axis=other, precision=Precision.DEFAULT)
-        num = torch.gather(dplane.reshape(*dplane.shape[:-2], h * w), -1, idx)
+        if u8:
+            td = luma_pass(derived.contiguous(), base.contiguous())
+        else:
+            td = dct.dct2_pass(colorspace.luma_diff(base, derived).to(
+                torch.bfloat16), axis=ax, precision=Precision.DEFAULT,
+                out_dtype=torch.bfloat16)
+        if sparse_second:
+            num = dct.dct2_dot_at(td, idx, contracted_axis=ax,
+                                  precision=Precision.DEFAULT)
+        else:
+            other = -1 if ax == -2 else -2
+            dplane = dct.dct2_pass(td, axis=other, precision=Precision.DEFAULT)
+            num = torch.gather(dplane.reshape(*dplane.shape[:-2], h * w), -1,
+                               idx)
     if config.custom_extract is not None:
         return config.custom_extract(idx, base_vals, base_vals + num)
     method, alpha = config.extraction.method, config.extraction.alpha

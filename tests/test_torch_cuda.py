@@ -6,6 +6,11 @@ installed: ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the
 suite's ``conftest.py`` imports JAX).
 """
 
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +21,7 @@ from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+from spread_spectrum_watermarking_torch.kernels import read_tail as k5
 from spread_spectrum_watermarking_torch.kernels import topk_select as k3
 from spread_spectrum_watermarking_torch.models import pipeline as tp
 from spread_spectrum_watermarking_torch.ops import colorspace, dct, ranking
@@ -220,13 +226,14 @@ def test_high_path_on_the_card_matches_the_cpu(cuda):
     rgb = rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
     marks = rng.standard_normal((2, 1, 200)).astype(np.float32)
     cfg = tw.WriteConfig(precision=tw.Precision.HIGH)
-    before = (k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES)
+    before = (k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES, k5.LAUNCHES)
     g_marked, g_ext = tw.embed_verified(torch.from_numpy(rgb).to(cuda),
                                         torch.from_numpy(marks).to(cuda), cfg)
     torch.cuda.synchronize()
-    # K1's high mode (base), its pair mode (read tail), K4 (epilogue).
-    assert (k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES) == \
-        (before[0] + 1, before[1] + 1, before[2] + 1)
+    # K1's high mode (base), K4 (epilogue), K5 (read tail); K1's single
+    # and pair modes not.
+    assert (k1.LAUNCHES, k1.HIGH_LAUNCHES, k4.LAUNCHES, k5.LAUNCHES) == \
+        (before[0], before[1] + 1, before[2] + 1, before[3] + 1)
     c_marked, c_ext = tw.embed_verified(torch.from_numpy(rgb),
                                         torch.from_numpy(marks), cfg)
     assert int((g_marked.cpu().int() - c_marked.int()).abs().max()) <= 1
@@ -689,3 +696,113 @@ def test_every_tier_selects_through_k3(cuda, precision):
         assert k3.COEFF_LAUNCHES - coeffs == (not fast)
         c_marked, c_ext = tw.embed_verified(rgb.cpu(), marks.cpu(), cfg)
         assert int((marked.cpu().int() - c_marked.int()).abs().max()) <= 1
+
+
+def _ranked(h, w, n, device, seed=0, b=2):
+    """(b, n) int64 flat indices drawn with repeats (n may exceed H W),
+    the DC and the last coefficient among them."""
+    rng = np.random.default_rng(seed + n)
+    idx = rng.integers(0, h * w, (b, n))
+    idx[:, 0] = 0
+    idx[:, -1] = h * w - 1
+    return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 20000])
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_read_tail_kernel_matches_plain(cuda, h, w, n):
+    # Within k5_bound (the first pass's bf16 rounding from sums in another
+    # order, the dots in another order) and no further from the f64 read
+    # than read_tail.gates allows, from aligned images and from views one
+    # byte into their storage.
+    rgb, near = _images(5, h, w, cuda)
+    idx = _ranked(h, w, n, cuda)
+    for derived, base in ((near, rgb), (_one_byte_in(near), _one_byte_in(rgb))):
+        before = (k5.LAUNCHES, k1.LAUNCHES)
+        t = k5.read_tail(derived, base, idx)
+        torch.cuda.synchronize()
+        assert (k5.LAUNCHES, k1.LAUNCHES) == (before[0] + 1, before[1])
+        assert t.dtype == torch.float32 and t.shape == (2, n)
+        g = k5.gates(t, near, rgb, idx)
+        assert g["within_bound"] and g["within_f64"], g
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_read_tail_repeats_and_ignores_the_batch(cuda, h, w):
+    # Bit for bit: a second call; each image alone, in other splits of the
+    # batch, and with one shared index set; so a Reader's chunk of any size
+    # reads what the Writer's verify read.
+    rgb, near = _images(7, h, w, cuda, b=4)
+    idx = _ranked(h, w, 500, cuda, b=4)
+    whole = k5.read_tail(near, rgb, idx)
+    assert torch.equal(whole, k5.read_tail(near, rgb, idx))
+    for lo, hi in ((0, 1), (1, 4), (2, 3)):
+        part = k5.read_tail(near[lo:hi].contiguous(), rgb[lo:hi].contiguous(),
+                            idx[lo:hi].contiguous())
+        assert torch.equal(part, whole[lo:hi])
+    shared = k5.read_tail(near, rgb, idx[2])
+    assert torch.equal(shared[2], whole[2])
+    assert torch.equal(k5.read_tail(near, rgb, idx[2].expand(4, -1)), shared)
+
+
+_OUT_OF_RANGE = textwrap.dedent("""
+    import torch
+    from spread_spectrum_watermarking_torch.kernels import read_tail as k5
+    img = torch.zeros((2, 37, 59, 3), dtype=torch.uint8, device="cuda")
+    idx = torch.zeros((2, 64), dtype=torch.int64, device="cuda")
+    idx[{image}, 5] = {value}
+    k5.read_tail(img, img, idx)
+    torch.cuda.synchronize()
+""")
+
+
+def test_read_tail_raises_at_an_index_out_of_range(cuda):
+    # The kernel's device-side assert fails, as PyTorch's indexing kernels
+    # do; it leaves the process's CUDA context unusable, so each bad call
+    # runs in a process of its own.
+    root = Path(__file__).resolve().parent.parent
+    for image, value in ((0, -1), (1, 37 * 59)):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             _OUT_OF_RANGE.format(image=image, value=value)],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        assert proc.returncode != 0
+        assert "device-side assert" in proc.stderr, proc.stderr[-2000:]
+    rgb, near = _images(8, 37, 59, cuda)
+    idx = _ranked(37, 59, 64, cuda)
+    assert bool(k5.read_tail(near, rgb, idx).isfinite().all())
+    with pytest.raises(ValueError):
+        k5.read_tail(near, rgb, idx.int())  # int32 indices
+    with pytest.raises(ValueError):
+        k5.read_tail(near.transpose(1, 2), rgb.transpose(1, 2), idx)
+    with pytest.raises(ValueError):
+        k5.read_tail(near, rgb, idx.cpu())  # CPU/CUDA mix
+
+
+@pytest.mark.parametrize("precision", [tw.Precision.DEFAULT,
+                                       tw.Precision.HIGH])
+def test_fast_reads_go_through_k5(cuda, precision):
+    # embed_verified and the detect path (rank_base + extract_ranked) read
+    # through K5 once each, bit-equal, and never K1's pair mode;
+    # extract(sparse_derived=False) keeps K1's pair mode and its full second
+    # pass, within 0.1 sigma of K5's read.
+    rng = np.random.default_rng(31)
+    rgb = torch.from_numpy(rng.integers(0, 256, (2, 96, 128, 3),
+                                        dtype=np.uint8)).to(cuda)
+    marks = torch.from_numpy(rng.standard_normal((2, 1, 200)).astype(
+        np.float32)).to(cuda)
+    cfg, rcfg = (tw.WriteConfig(precision=precision),
+                 tw.ReadConfig(precision=precision))
+    before = (k5.LAUNCHES, k1.PAIR_LAUNCHES)
+    marked, ext = tw.embed_verified(rgb, marks, cfg)
+    idx, vals = tw.rank_base(rgb, 200, rcfg)
+    sparse = tw.extract_ranked(rgb, marked, idx, vals, rcfg)
+    torch.cuda.synchronize()
+    assert (k5.LAUNCHES, k1.PAIR_LAUNCHES) == (before[0] + 2, before[1])
+    assert torch.equal(sparse, ext)
+    full = tw.extract(rgb, marked, 200, rcfg, sparse_derived=False)
+    torch.cuda.synchronize()
+    assert (k5.LAUNCHES, k1.PAIR_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    sims = [torch.diagonal(tw.similarity(e, marks[:, 0])) for e in (ext, full)]
+    assert bool(((sims[0] - sims[1]).abs() <= 0.1).all())
+    assert bool((sims[0] > 6.0).all())

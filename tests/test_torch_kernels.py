@@ -117,14 +117,16 @@ def test_cpu_tensors_take_the_plain_path():
 
 def test_kernel_reciprocals_are_the_ones_xla_multiplies_by():
     """K1 multiplies by f32(1/255) (its u8 table) and f32(1/25500) (pair
-    mode), the constants XLA puts in place of the JAX code's divisions
-    under jit; the port's colorspace uses the same ones."""
+    mode, and K5's pair luma), the constants XLA puts in place of the JAX
+    code's divisions under jit; the port's colorspace uses the same ones.
+    The luma tile pass that both kernels share holds them."""
     import pathlib
     import re
 
     from spread_spectrum_watermarking_torch.ops import colorspace as tc
 
-    src = (pathlib.Path(k1.__file__).parent.parent / "csrc" / "luma_pass.cu")
+    src = (pathlib.Path(k1.__file__).parent.parent / "csrc" /
+           "luma_tiles.cuh")
     consts = dict(re.findall(r"constexpr float (kInv\d+) = (0x[0-9a-fp.+-]+)f;",
                              src.read_text()))
     inv255 = np.float32(float.fromhex(consts["kInv255"]))
