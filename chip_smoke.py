@@ -26,14 +26,15 @@ Phases, one line of output each, any failure exits non-zero:
    1080p on the main path's marked pair (DEFAULT, n = 1000 ranked indices)
    and on ±3 noise, a 12.5% resize round-trip, a crop-to-black composite
    and an unrelated random image; at 8 x 4K and 4 x 1920 x 1080 on the
-   marked and the unrelated pairs; at 444 x 640, 640 x 444 and 37 x 59 at
-   n = 1, 1000 and 20,000; each case within ``k5_bound`` and with an f64
-   error at most twice the plain version's plus one unit
-   (``read_tail.gates``); its time at 48 x 1080p and 8 x 4K beside its
-   plain version's and the old route's (and each of its two stages), its
-   device launches per call and each one's device time from
-   ``torch.profiler``, and its bound from the distinct first-pass rows the
-   run's indices need;
+   marked and the unrelated pairs; on the harness's random u8 at 48 x
+   1080p and 8 x 4K; at 444 x 640, 640 x 444 and 37 x 59 at n = 1, 1000
+   and 20,000; each case within ``k5_bound`` and with an f64 error at most
+   twice the plain version's plus one unit (``read_tail.gates``); its time
+   at 48 x 1080p and 8 x 4K on the textures and on random u8 beside its
+   plain version's (on the textures also the old route's and each of its
+   two stages), its device launches per call and each one's device time
+   from ``torch.profiler``, the peak memory of a call, and its bound from
+   the distinct first-pass rows the run's indices need;
 4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
    against their plain versions at 444x640, 640x444, 37x59, 48x1080x1920,
    1920x1080 and 2x2160x3840; K6a's top-1000 ranking against the plain
@@ -571,73 +572,124 @@ def _k5_device(fn, calls: int = 3) -> dict:
                                    per.items()}}
 
 
+def _k5_timing(marked, base, idx) -> dict:
+    """K5 on one pair: its ms and its plain version's (CUDA events, mean
+    of 5 after a warm-up), its device launches a call and each kernel's
+    device ms (``_k5_device``), the peak of memory one call allocates
+    (scratch and output, ``peak_scratch_mb``), the distinct first-pass
+    rows the indices need and its bound from them. Only ``read_tail`` and
+    its plain version are called, so any checkout's port can be timed so
+    (``scripts/k5_ab.py``)."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import read_tail as k5
+
+    b, h, w = marked.shape[:3]
+    n = idx.shape[-1]
+    rec = {"ms": time_ms(lambda: k5.read_tail(marked, base, idx), 5),
+           "plain_ms": time_ms(
+               lambda: k5.read_tail_reference(marked, base, idx), 5),
+           **_k5_device(lambda: k5.read_tail(marked, base, idx))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    k5.read_tail(marked, base, idx)
+    torch.cuda.synchronize()
+    rec["peak_scratch_mb"] = (torch.cuda.max_memory_allocated()
+                              - before) / 1e6
+    px, s, l = b * h * w, min(h, w), max(h, w)
+    # The function needs one first-pass row, S L long, per distinct
+    # (image, coordinate along S) of the indices, and an L-long dot per
+    # index; two u8 images in, the int64 indices in, f32 out, the two bf16
+    # bases.
+    a = (idx // w if h <= w else idx % w).expand(b, n).sort(-1).values
+    rows = b + int((a.diff(dim=-1) != 0).sum())
+    rec.update(distinct_rows=rows, **bound(
+        2 * rows * s * l + 2 * b * n * l,
+        6 * px + 12 * b * n + 2 * (s * s + l * l), BF16_PEAK))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def k5_inputs(content: str, seed: int, b: int, h: int, w: int):
+    """(marked, base, idx) as the fast tiers read them: ``base`` the 1/f
+    textures of ``seed`` (``textures``) or the harness's random u8
+    (``bench._inputs`` from numpy's generator of ``seed``), marked by
+    ``embed`` at DEFAULT with n = 1000 marks, ``idx`` its ranked indices
+    from ``rank_base``."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import Precision, bench
+
+    if content == "random_u8":
+        base, marks = bench._inputs(np.random.default_rng(seed), b, h, w, N,
+                                    torch.device("cuda"))
+    else:
+        base = textures(seed, b, h, w)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        marks = torch.randn((b, 1, N), generator=gen, device="cuda")
+    marked = wm.embed(base, marks, wm.WriteConfig(precision=Precision.DEFAULT))
+    idx, _ = wm.rank_base(base, N, wm.ReadConfig(precision=Precision.DEFAULT))
+    return marked, base, idx
+
+
 def phase_k5() -> dict:
     """K5 (the read tail) against its plain version through both of
     ``read_tail.gates`` (within ``k5_bound``; the f64 error):
     at 48 x 1080p on the main path's marked pair (DEFAULT, n = 1000 ranked
     indices) and on ±3 noise, a resize round-trip, a crop-to-black
     composite and an unrelated image; at 8 x 4K and 4 x 1920 x 1080
-    (portrait) on the marked and the unrelated pairs; at 444 x 640, 640 x
-    444 and 37 x 59 at n = 1, 1000 and 20,000 (indices with repeats); then
-    its time at 48 x 1080p and 8 x 4K beside its plain version's and the
-    old route's (K1's pair mode, then the plain gather-dot), its device
-    launches and bound: the record of ``read_tail``."""
+    (portrait) on the marked and the unrelated pairs; on the harness's
+    random u8, marked and ranked the same way, at 48 x 1080p and 8 x 4K; at
+    444 x 640, 640 x 444 and 37 x 59 at n = 1, 1000 and 20,000 (indices
+    with repeats); then its time (``_k5_timing``) at 48 x 1080p and 8 x 4K
+    on the textures and on random u8, and on the textures beside the old
+    route's (K1's pair mode, then the plain gather-dot): the record of
+    ``read_tail``, from the 48 x 1080p random u8, the harness's rate
+    inputs."""
     import torch
 
-    import spread_spectrum_watermarking_torch as wm
     from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
-    from spread_spectrum_watermarking_torch.kernels import read_tail as k5
     from spread_spectrum_watermarking_torch.ops import dct
 
     gen = torch.Generator(device="cuda").manual_seed(55)
     worst, times = 0.0, {}
-    cfg = wm.WriteConfig(precision=Precision.DEFAULT)
-    rcfg = wm.ReadConfig(precision=Precision.DEFAULT)
-    # The main path's and phase 9's textures (seeds 30 and 50), and a
-    # portrait batch.
-    for seed, b, h, w, all_pairs in ((30, 48, 1080, 1920, True),
-                                     (50, 8, 2160, 3840, False),
-                                     (65, 4, 1920, 1080, False)):
-        base = textures(seed, b, h, w)
-        marks = torch.randn((b, 1, N), generator=gen, device="cuda")
-        marked = wm.embed(base, marks, cfg)
-        idx, _ = wm.rank_base(base, N, rcfg)
-        worst = max(worst, _compare_k5("marked", marked, base, idx))
-        for case, derived in _k5_pairs(base):
-            if all_pairs or case == "unrelated":
-                worst = max(worst, _compare_k5(case, derived, base, idx))
-            del derived
+    # The main path's and phase 9's textures (seeds 30 and 50), a portrait
+    # batch, and the harness's random u8 (seed 0) at both sizes.
+    for content, seed, b, h, w in (("textures", 30, 48, 1080, 1920),
+                                   ("textures", 50, 8, 2160, 3840),
+                                   ("textures", 65, 4, 1920, 1080),
+                                   ("random_u8", 0, 48, 1080, 1920),
+                                   ("random_u8", 0, 8, 2160, 3840)):
+        marked, base, idx = k5_inputs(content, seed, b, h, w)
+        tag = "marked" if content == "textures" else "random_u8"
+        worst = max(worst, _compare_k5(tag, marked, base, idx))
+        if content == "textures":
+            for case, derived in _k5_pairs(base):
+                if b == 48 or case == "unrelated":
+                    worst = max(worst, _compare_k5(case, derived, base, idx))
+                del derived
         if b in (48, 8):
-            ax = dct.shorter_axis(h, w)
-            td = k1.luma_pass(marked, base)
-            times[b] = {
-                "ms": time_ms(lambda: k5.read_tail(marked, base, idx), 5),
-                "plain_ms": time_ms(
-                    lambda: k5.read_tail_reference(marked, base, idx), 5),
-                "old_route_ms": time_ms(lambda: dct.dct2_dot_at(
-                    k1.luma_pass(marked, base), idx, contracted_axis=ax,
-                    precision=Precision.DEFAULT), 5),
-                "old_k1_pair_ms": time_ms(
-                    lambda: k1.luma_pass(marked, base), 5),
-                "old_gather_dot_ms": time_ms(lambda: dct.dct2_dot_at(
-                    td, idx, contracted_axis=ax,
-                    precision=Precision.DEFAULT), 5),
-                **_k5_device(lambda: k5.read_tail(marked, base, idx))}
-            del td
-            px, s, l = b * h * w, min(h, w), max(h, w)
-            # The function needs one first-pass row, S L long, per distinct
-            # (image, coordinate along S) of the indices, and an L-long dot
-            # per index; two u8 images in, the int64 indices in, f32 out,
-            # the two bf16 bases.
-            a = (idx // w if h <= w else idx % w).sort(-1).values
-            rows = b + int((a.diff(dim=-1) != 0).sum())
-            times[b].update(distinct_rows=rows, kernel_rows=b * N,
-                            **bound(2 * rows * s * l + 2 * b * N * l,
-                                    6 * px + 12 * b * N
-                                    + 2 * (s * s + l * l), BF16_PEAK))
-            log("k5_time", shape=[b, h, w], n=N, **times[b],
-                share_of_bound=times[b]["bound_ms"] / times[b]["ms"])
+            rec = _k5_timing(marked, base, idx)
+            if content == "textures":
+                ax = dct.shorter_axis(h, w)
+                td = k1.luma_pass(marked, base)
+                rec.update(
+                    old_route_ms=time_ms(lambda: dct.dct2_dot_at(
+                        k1.luma_pass(marked, base), idx, contracted_axis=ax,
+                        precision=Precision.DEFAULT), 5),
+                    old_k1_pair_ms=time_ms(
+                        lambda: k1.luma_pass(marked, base), 5),
+                    old_gather_dot_ms=time_ms(lambda: dct.dct2_dot_at(
+                        td, idx, contracted_axis=ax,
+                        precision=Precision.DEFAULT), 5))
+                del td
+            times[content, b] = rec
+            log("k5_time", content=content, shape=[b, h, w], n=N, **rec)
+            if rec["device_launches_per_call"] > 4:
+                raise AssertionError("K5 makes more than 4 device launches")
         del base, marked, idx
         torch.cuda.empty_cache()
     for h, w in ((444, 640), (640, 444), (37, 59)):
@@ -648,7 +700,7 @@ def phase_k5() -> dict:
             for case, derived in _k5_pairs(base):
                 if case in ("noise3", "unrelated"):
                     worst = max(worst, _compare_k5(case, derived, base, idx))
-    rec = times[48]
+    rec = times["random_u8", 48]
     return {"max_abs_err": worst, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "library_ms": None, "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"]}

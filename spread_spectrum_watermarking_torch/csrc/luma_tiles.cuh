@@ -50,15 +50,52 @@ __device__ __forceinline__ float luma_px(const uint8_t* p, const uint8_t* q) {
   return __fmaf_rn(b, 0.11f, __fmaf_rn(g, 0.59f, __fmul_rn(r, 0.30f)));
 }
 
+// Tile (rt, kt) of image `image`'s tile image from its luma region `ys`
+// (see luma_tile), parts hi (and lo, high mode) part_stride apart, images
+// kP * part_stride apart: ys is read across, 8 threads to each 128-byte row
+// of the tile image, so the writes are whole segments in either
+// orientation.
+template <Mode kMode, bool kLandscape>
+__device__ __forceinline__ void write_tile(const float* ys,
+                                           __nv_bfloat16* __restrict__ tiles,
+                                           int ktiles, long long part_stride,
+                                           int rt, int kt, int image) {
+  using wg::kDepth;
+  using wg::kTile;
+  constexpr int kP = kParts<kMode>;
+  constexpr int kPitch = (kLandscape ? wg::kRows : kDepth) + 1;
+  __nv_bfloat16* tile = tiles + image * (kP * part_stride) +
+                        (size_t(rt) * ktiles + kt) * kTile;
+#pragma unroll
+  for (int i = 0; i < kTile / 8 / kTileThreads; ++i) {
+    const int e = threadIdx.x + i * kTileThreads;
+    const int r = e / (kDepth / 8), c = e % (kDepth / 8);
+    __align__(16) __nv_bfloat16 hi[8];
+    __align__(16) __nv_bfloat16 lo[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = 8 * c + j;
+      const float y = kLandscape ? ys[k * kPitch + r] : ys[r * kPitch + k];
+      hi[j] = __float2bfloat16_rn(y);
+      if (kP == 2)
+        lo[j] = __float2bfloat16_rn(__fsub_rn(y, __bfloat162float(hi[j])));
+    }
+    const int at = wg::swizzled(r, 8 * c);
+    *reinterpret_cast<uint4*>(tile + at) = *reinterpret_cast<const uint4*>(hi);
+    if (kP == 2)
+      *reinterpret_cast<uint4*>(tile + part_stride + at) =
+          *reinterpret_cast<const uint4*>(lo);
+  }
+}
+
 // Tile (rt, kt) of image `image`'s luma tile image, written by a block of
 // kTileThreads threads; parts hi (and lo, high mode) part_stride apart,
 // images kP * part_stride apart. The tile's pixels are read with
 // neighbouring threads on neighbouring w (the image's contiguous axis) into
-// an f32 tile in shared memory, which is then read across, 8 threads to
-// each 128-byte row of the tile image: both the reads and the writes are
-// whole segments, in either orientation. Pixels are read one byte at a
-// time, so any u8 view (one byte into its storage) is read as it lies; each
-// thread has eight pixels' loads in flight at once.
+// an f32 tile in shared memory, which write_tile then reads across.
+// Pixels are read one byte at a time, so any u8 view (one byte into its
+// storage) is read as it lies; each thread has eight pixels' loads in
+// flight at once.
 template <Mode kMode, bool kLandscape>
 __device__ __forceinline__ void luma_tile(const uint8_t* __restrict__ rgb,
                                           const uint8_t* __restrict__ base,
@@ -69,7 +106,6 @@ __device__ __forceinline__ void luma_tile(const uint8_t* __restrict__ rgb,
   using wg::kDepth;
   using wg::kRows;
   using wg::kTile;
-  constexpr int kP = kParts<kMode>;
   // The image region: kDepth rows h by kRows columns w in landscape, kRows
   // by kDepth in portrait; its luma at ys[row * pitch + col].
   constexpr int kCols = kLandscape ? kRows : kDepth;
@@ -105,28 +141,81 @@ __device__ __forceinline__ void luma_tile(const uint8_t* __restrict__ rgb,
     }
   }
   __syncthreads();
-  __nv_bfloat16* tile = tiles + image * (kP * part_stride) +
-                        (size_t(rt) * ktiles + kt) * kTile;
+  write_tile<kMode, kLandscape>(ys, tiles, ktiles, part_stride, rt, kt,
+                                image);
+}
+
+// Pair mode's tile (rt, kt), as luma_tile<Mode::kPair> writes it, read 16
+// bytes at a time: for u8 images whose rows are 16-byte aligned (both
+// pointers 16-byte aligned and 3 w a multiple of 16, so every 16-byte chunk
+// of a row lies wholly inside or wholly outside the image). The region's
+// rows are read in kRounds bands: neighbouring threads load neighbouring
+// chunks of a row (whole 128-byte lines), every band's loads issued before
+// the first is used; each band goes to shared memory as bytes, from which
+// each thread takes its pixels as luma_tile does (luma_px, so the luma is
+// the same bit for bit) into the f32 tile ys, which write_tile reads.
+template <bool kLandscape>
+__device__ __forceinline__ void pair_tile_wide(
+    const uint8_t* __restrict__ rgb, const uint8_t* __restrict__ base,
+    __nv_bfloat16* __restrict__ tiles, int h, int w, int ktiles,
+    long long part_stride, int rt, int kt, int image) {
+  using wg::kDepth;
+  using wg::kRows;
+  constexpr int kCols = kLandscape ? kRows : kDepth;   // pixels along w
+  constexpr int kLines = kLandscape ? kDepth : kRows;  // image rows
+  constexpr int kPitch = kCols + 1;
+  constexpr int kRounds = 4;
+  constexpr int kBandLines = kLines / kRounds;
+  constexpr int kRowBytes = 3 * kCols;
+  constexpr int kBandChunks = kBandLines * kRowBytes / 16;  // an image's
+  constexpr int kLoads = 2 * kBandChunks / kTileThreads;
+  constexpr int kPx = kBandLines * kCols / kTileThreads;
+  static_assert(2 * kBandChunks % kTileThreads == 0 &&
+                    kBandLines * kCols % kTileThreads == 0,
+                "a band's chunks and pixels per thread");
+  __shared__ float ys[kRows * (kDepth + 1)];
+  __shared__ __align__(16) uint8_t raw[2][kBandLines * kRowBytes];
+  const int h0 = (kLandscape ? kt * kDepth : rt * kRows);
+  const int w0 = (kLandscape ? rt * kRows : kt * kDepth);
+  const size_t img = size_t(image) * h * w;
+  uint4 v[kRounds][kLoads];
 #pragma unroll
-  for (int i = 0; i < kTile / 8 / kTileThreads; ++i) {
-    const int e = threadIdx.x + i * kTileThreads;
-    const int r = e / (kDepth / 8), c = e % (kDepth / 8);
-    __align__(16) __nv_bfloat16 hi[8];
-    __align__(16) __nv_bfloat16 lo[8];
+  for (int band = 0; band < kRounds; ++band) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = 8 * c + j;
-      const float y = kLandscape ? ys[k * kPitch + r] : ys[r * kPitch + k];
-      hi[j] = __float2bfloat16_rn(y);
-      if (kP == 2)
-        lo[j] = __float2bfloat16_rn(__fsub_rn(y, __bfloat162float(hi[j])));
+    for (int j = 0; j < kLoads; ++j) {
+      const int f = threadIdx.x + j * kTileThreads;
+      const int chunk = f % kBandChunks;
+      const int gh = h0 + band * kBandLines + chunk / (kRowBytes / 16);
+      const int gx = 3 * w0 + 16 * (chunk % (kRowBytes / 16));  // byte in row
+      const bool in = gh < h && gx < 3 * w;
+      const size_t at = in ? 3 * (img + size_t(gh) * w) + gx : 0;
+      const uint8_t* src = (f < kBandChunks ? rgb : base) + at;
+      v[band][j] = in ? *reinterpret_cast<const uint4*>(src)
+                      : make_uint4(0, 0, 0, 0);
     }
-    const int at = wg::swizzled(r, 8 * c);
-    *reinterpret_cast<uint4*>(tile + at) = *reinterpret_cast<const uint4*>(hi);
-    if (kP == 2)
-      *reinterpret_cast<uint4*>(tile + part_stride + at) =
-          *reinterpret_cast<const uint4*>(lo);
   }
+#pragma unroll
+  for (int band = 0; band < kRounds; ++band) {
+    if (band > 0) __syncthreads();  // the last band's bytes have been read
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int f = threadIdx.x + j * kTileThreads;
+      *reinterpret_cast<uint4*>(raw[f / kBandChunks] +
+                                16 * (f % kBandChunks)) = v[band][j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kPx; ++u) {
+      const int px = threadIdx.x + u * kTileThreads;
+      const int line = px / kCols, col = px % kCols;
+      const int at = line * kRowBytes + 3 * col;
+      ys[(band * kBandLines + line) * kPitch + col] =
+          luma_px<Mode::kPair>(raw[0] + at, raw[1] + at);
+    }
+  }
+  __syncthreads();
+  write_tile<Mode::kPair, kLandscape>(ys, tiles, ktiles, part_stride, rt, kt,
+                                      image);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // The Hopper bf16 mainloop shared by K1 (csrc/luma_pass.cu), K1f
-// (csrc/fold_pass.cu) and K4 (csrc/embed_epilogue.cu): a batched product
+// (csrc/fold_pass.cu), K4 (csrc/embed_epilogue.cu) and K5
+// (csrc/read_tail.cu): a batched product
 // D = A B^T of two operands that are already laid out, tile by tile, as
 // wgmma reads them from shared memory.
 //
@@ -24,6 +25,11 @@
 // f32; K4's policy adds them to a u8 image. A policy names the shared
 // memory of its own that it needs (kSmemBytes, after the stages) and is
 // called by every consumer thread after a tile's last stage.
+//
+// Walk. Which output tiles the blocks take, and in what order, is a second
+// policy: AllTiles (K1, K1f, K4) takes every tile in TileAt's order; K5's
+// takes only the tiles that hold rows, from counts its first launch wrote
+// to device memory.
 //
 // Block: 2 consumer warpgroups (64 output rows each) and one producer warp,
 // one block per SM, persistent over the output tiles (gemm_kernel).
@@ -215,6 +221,7 @@ __device__ __forceinline__ void store2(float* p, float v0, float v1) {
 // side.
 struct TileAt {
   int m, n, image, parity;
+  TileAt() = default;
   __device__ TileAt(int tile, int m_tiles, int n_tiles, int parities) {
     parity = tile % parities;
     tile /= parities;
@@ -222,6 +229,19 @@ struct TileAt {
     tile /= m_tiles;
     n = tile % n_tiles;
     image = tile / n_tiles;
+  }
+};
+
+// The default walk: the grid's tile `tile` is output tile TileAt(tile, ...)
+// while tile < tiles. A walk's at() is called by every thread that walks
+// (the producer and each consumer) with tile = blockIdx.x, blockIdx.x +
+// gridDim.x, ... in turn, and may keep a cursor between the calls.
+struct AllTiles {
+  __device__ __forceinline__ bool at(int tile, int m_tiles, int n_tiles,
+                                     int tiles, int parities, TileAt& t) {
+    if (tile >= tiles) return false;
+    t = TileAt(tile, m_tiles, n_tiles, parities);
+    return true;
   }
 };
 
@@ -269,15 +289,15 @@ struct StoreOut {
 };
 
 // Persistent: each block walks the 128 x 128 output tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ... (`tiles` in all, m_tiles x n_tiles for each
-// of the products), each over `ktiles` stages of k, in a ring of S stages,
-// and hands each tile's sums to `epi`. The stage ring runs on across tiles,
-// so the producer fills the next tile's first stages while the consumers
-// run the last one's epilogue.
-template <int kParts, int S, typename Epilogue>
+// blockIdx.x + gridDim.x, ... of `walk` (AllTiles: `tiles` in all, m_tiles
+// x n_tiles for each of the products), each over `ktiles` stages of k, in a
+// ring of S stages, and hands each tile's sums to `epi`. The stage ring runs
+// on across tiles, so the producer fills the next tile's first stages while
+// the consumers run the last one's epilogue.
+template <int kParts, int S, typename Epilogue, typename Walk>
 __global__ void __launch_bounds__(kThreads, 1)
-gemm_kernel(Operand a, Operand b, Epilogue epi, int m_tiles, int n_tiles,
-            int tiles, int ktiles, int parities) {
+gemm_kernel(Operand a, Operand b, Epilogue epi, Walk walk, int m_tiles,
+            int n_tiles, int tiles, int ktiles, int parities) {
   constexpr uint32_t kStageBytes = 2 * kParts * kTile * sizeof(__nv_bfloat16);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Stage<kParts>* st = reinterpret_cast<Stage<kParts>*>(
@@ -300,8 +320,10 @@ gemm_kernel(Operand a, Operand b, Epilogue epi, int m_tiles, int n_tiles,
     // The producer: one thread issues every copy.
     if (threadIdx.x == kConsumers) {
       int it = 0;  // stages issued so far
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const TileAt t(tile, m_tiles, n_tiles, parities);
+      TileAt t;
+      for (int tile = blockIdx.x;
+           walk.at(tile, m_tiles, n_tiles, tiles, parities, t);
+           tile += gridDim.x) {
         const __nv_bfloat16* pa = a.ptr + t.image * a.image_stride +
                                   t.parity * a.parity_stride +
                                   (long long)t.m * ktiles * kTile;
@@ -330,8 +352,10 @@ gemm_kernel(Operand a, Operand b, Epilogue epi, int m_tiles, int n_tiles,
   const int half = threadIdx.x / 128, lane = threadIdx.x % 32;
   float acc[64], part[64];
   int it = 0;  // stages consumed so far
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const TileAt t(tile, m_tiles, n_tiles, parities);
+  TileAt t;
+  for (int tile = blockIdx.x;
+       walk.at(tile, m_tiles, n_tiles, tiles, parities, t);
+       tile += gridDim.x) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
     for (int kt = 0; kt < ktiles; ++kt, ++it) {
@@ -366,13 +390,15 @@ gemm_kernel(Operand a, Operand b, Epilogue epi, int m_tiles, int n_tiles,
 
 // Launches gemm_kernel on `stream`: one block per SM (at most one per
 // tile) over the m_tiles x n_tiles output tiles of each of the batch *
-// parities products, S stages in the ring.
-template <int kParts, typename Epilogue, int S = kStages<kParts>>
+// parities products, or those of them that `walk` takes, S stages in the
+// ring.
+template <int kParts, typename Epilogue, typename Walk = AllTiles,
+          int S = kStages<kParts>>
 cudaError_t launch_gemm(const Operand& a, const Operand& b,
                         const Epilogue& epi, int m_tiles, int n_tiles,
                         int ktiles, int batch, int parities,
-                        cudaStream_t stream) {
-  auto kernel = gemm_kernel<kParts, S, Epilogue>;
+                        cudaStream_t stream, const Walk& walk = Walk()) {
+  auto kernel = gemm_kernel<kParts, S, Epilogue, Walk>;
   constexpr size_t smem = smem_bytes<kParts, S, Epilogue>();
   static_assert(smem + 2 * S * sizeof(uint64_t) <= 232448,
                 "stages and epilogue exceed a block's shared memory");
@@ -386,7 +412,7 @@ cudaError_t launch_gemm(const Operand& a, const Operand& b,
   if (err != cudaSuccess) return err;
   const int tiles = m_tiles * n_tiles * batch * parities;
   kernel<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
-      a, b, epi, m_tiles, n_tiles, tiles, ktiles, parities);
+      a, b, epi, walk, m_tiles, n_tiles, tiles, ktiles, parities);
   return cudaGetLastError();
 }
 

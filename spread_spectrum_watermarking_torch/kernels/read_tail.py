@@ -10,12 +10,15 @@ kernel is held against on the card.
 
 The kernel (``csrc/read_tail.cu``, which says what bounds it on the H100
 and how its design answers that) computes one row of the first pass per
-index, never the (B, H, W) plane: in landscape (H <= W)
-``num[i] = sum_w bf16(sum_h C_h[r_i, h] y[h, w]) C_w[c_i, w]`` with
-``r_i = idx_i // W``, ``c_i = idx_i % W``, y the pair luma and the bases
-in bf16; portrait is the mirror. Its sums run in another order than the
-plain version's: :func:`k5_bound` is the per-index tolerance between the
-two, :func:`f64_error` the error against an f64 product.
+distinct row of the indices, never the (B, H, W) plane: in landscape
+(H <= W) ``num[i] = sum_w bf16(sum_h C_h[r_i, h] y[h, w]) C_w[c_i, w]``
+with ``r_i = idx_i // W``, ``c_i = idx_i % W``, y the pair luma and the
+bases in bf16; portrait is the mirror. Four launches: the compaction of
+each image's rows (:func:`compact_rows_reference` is its plain version),
+the operands, the product at those rows, the dots. Its sums run in
+another order than the plain version's: :func:`k5_bound` is the per-index
+tolerance between the two, :func:`f64_error` the error against an f64
+product.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from .luma_pass import _basis_tiles, _check_image, luma_pass_reference
 LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _L, _P, _P, _P, _L, _P, _L, _P, _L, _P,
+             _I, _I, _I, _I, _P]
 _U = 2.0 ** -24  # f32's unit roundoff
 
 
@@ -53,6 +57,29 @@ def _check(derived: torch.Tensor, base: torch.Tensor,
                          f"{tuple(idx.shape)} {idx.dtype}")
     if idx.device != derived.device:
         raise ValueError("idx must be on the images' device")
+
+
+def compact_rows_reference(idx: torch.Tensor, h: int, w: int, b: int
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Plain version of the kernel's compaction, for ``b`` images of H x W
+    and flat indices ``idx`` (n,) or (b, n): each image's distinct
+    coordinates along the shorter axis (a_i = idx // W in landscape,
+    idx % W in portrait), as ``(count (b,), rows (b, min(n, S)) ascending
+    and -1 past the count, slot (b, n))`` with ``rows[j, slot[j, i]] =
+    a_i``. Like the kernel, it marks the rows in a map over S and places
+    each by the count of marks before it."""
+    s = min(h, w)
+    idx = idx.expand(b, idx.shape[-1])
+    a = idx // w if h <= w else idx % w
+    mark = torch.zeros((b, s), dtype=torch.bool, device=idx.device)
+    mark.scatter_(1, a, True)
+    place = mark.long().cumsum(1) - 1
+    rows = torch.full((b, min(idx.shape[-1], s)), -1, dtype=torch.long,
+                      device=idx.device)
+    image, row = mark.nonzero(as_tuple=True)
+    rows[image, place[image, row]] = row
+    return mark.sum(1), rows, place.gather(1, a)
 
 
 def read_tail_reference(derived: torch.Tensor, base: torch.Tensor,
@@ -74,15 +101,20 @@ def _long_basis(n: int, device: torch.device) -> torch.Tensor:
     return torch.nn.functional.pad(c, (0, pitch - n)).contiguous()
 
 
-def _layout(b: int, h: int, w: int, n: int) -> tuple[tuple, tuple]:
-    """The shapes of the scratch's two tile images: the luma's (rows along
-    the longer axis), then the basis rows' (rows the n indices), both as
-    deep as the shorter axis."""
+def _layout(b: int, h: int, w: int, n: int) -> tuple[int, int, int]:
+    """The kernel's scratch, in elements (``Layout`` in the source): bf16
+    ``work``, the luma's tile image (rows along the longer axis) and the
+    listed basis rows' (ceil(min(n, S) / 128) tiles of 128 rows), both as
+    deep as the shorter axis S; bf16 ``drows``, bf16(D), as many rows of
+    the longer axis padded to whole tiles; int32 ``meta``, each image's
+    count of distinct rows, their list and each index's slot."""
     s, l = min(h, w), max(h, w)
+    cap = min(n, s)
     lt, kt = _tiles.tile_counts(l, s)
-    mt, _ = _tiles.tile_counts(n, s)
-    tile = (_tiles.ROWS, _tiles.DEPTH)
-    return (b, lt, kt, *tile), (b, mt, kt, *tile)
+    mt, _ = _tiles.tile_counts(cap, s)
+    tile = _tiles.ROWS * _tiles.DEPTH
+    return (b * (lt + mt) * kt * tile, b * mt * _tiles.ROWS * lt * _tiles.ROWS,
+            b * (1 + cap + n))
 
 
 def read_tail(derived: torch.Tensor, base: torch.Tensor,
@@ -111,7 +143,7 @@ def read_tail(derived: torch.Tensor, base: torch.Tensor,
 
 def _launch(derived: torch.Tensor, base: torch.Tensor,
             idx: torch.Tensor) -> torch.Tensor:
-    """The kernel's three launches on the current stream: (B, n) f32."""
+    """The kernel's four launches on the current stream: (B, n) f32."""
     _check_image(derived, "derived")
     _check_image(base, "base")
     if derived.device.type != "cuda":
@@ -124,19 +156,19 @@ def _launch(derived: torch.Tensor, base: torch.Tensor,
     # An index set shared by the batch (stride 0) is read once per image.
     idx_stride = idx.stride(0) if idx.ndim == 2 else 0
     dev = derived.device
-    n_work = sum(torch.Size(s).numel() for s in _layout(b, h, w, n))
+    n_work, n_drows, n_meta = _layout(b, h, w, n)
     work = torch.empty(n_work, dtype=torch.bfloat16, device=dev)
+    drows = torch.empty(n_drows, dtype=torch.bfloat16, device=dev)
+    meta = torch.empty(n_meta, dtype=torch.int32, device=dev)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    l_tiles = _tiles.tile_counts(max(h, w), 1)[0]
-    partials = torch.empty(b * l_tiles * n, dtype=torch.float32, device=dev)
     basis_s = _basis_tiles(min(h, w), dev, Precision.DEFAULT)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.kernel("ssw_read_tail", _ARGTYPES)(
             derived.data_ptr(), base.data_ptr(), idx.data_ptr(), idx_stride,
             basis_s.data_ptr(), _long_basis(max(h, w), dev).data_ptr(),
-            work.data_ptr(), n_work, partials.data_ptr(), out.data_ptr(),
-            b, h, w, n, stream)
+            work.data_ptr(), n_work, drows.data_ptr(), n_drows,
+            meta.data_ptr(), n_meta, out.data_ptr(), b, h, w, n, stream)
     _build.check(code, "ssw_read_tail")
     return out
 

@@ -745,6 +745,49 @@ def test_read_tail_repeats_and_ignores_the_batch(cuda, h, w):
     assert torch.equal(k5.read_tail(near, rgb, idx[2].expand(4, -1)), shared)
 
 
+@pytest.mark.parametrize("h,w", [(2400, 2432), (2432, 2400), (8192, 8208)])
+def test_read_tail_kernel_matches_plain_at_large_sides(cuda, h, w):
+    # Shorter sides from 2,400 to 8,192 in both orientations, through both
+    # gates: the 16-byte loads (every row 16-byte aligned) and the byte
+    # loads (a view one byte into its storage), 1000 indices with repeats.
+    rgb, near = _images(9, h, w, cuda, b=1)
+    idx = _ranked(h, w, 1000, cuda, b=1)
+    for derived, base in ((near, rgb), (_one_byte_in(near),
+                                        _one_byte_in(rgb))):
+        t = k5.read_tail(derived, base, idx)
+        torch.cuda.synchronize()
+        g = k5.gates(t, near, rgb, idx)
+        assert g["within_bound"] and g["within_f64"] and g["finite"], g
+        del t
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (640, 444)])
+def test_read_tail_mixed_row_counts_match_each_image_alone(cuda, h, w):
+    # One batch: an image whose 1000 indices share one row, one whose
+    # indices cover min(n, S) rows (whole m tiles), one of random indices;
+    # the product walks a different number of m tiles for each, and each
+    # image reads, bit for bit, what it reads alone.
+    n = 1000
+    rgb, near = _images(10, h, w, cuda, b=3)
+    idx = _ranked(h, w, n, cuda, b=3)
+    s, l = min(h, w), max(h, w)
+    a = torch.arange(n, device=cuda) % s
+    c = torch.arange(n, device=cuda) % l
+    land = h <= w
+    idx[0] = 5 * w + c if land else c * w + 5
+    idx[1] = a * w + c if land else c * w + a
+    whole = k5.read_tail(near, rgb, idx)
+    g = k5.gates(whole, near, rgb, idx)
+    assert g["within_bound"] and g["within_f64"] and g["finite"], g
+    for i in range(3):
+        alone = k5.read_tail(near[i:i + 1].contiguous(),
+                             rgb[i:i + 1].contiguous(),
+                             idx[i:i + 1].contiguous())
+        assert torch.equal(alone[0], whole[i])
+    count, _, _ = k5.compact_rows_reference(idx.cpu(), h, w, 3)
+    assert count.tolist()[:2] == [1, min(n, s)]
+
+
 _OUT_OF_RANGE = textwrap.dedent("""
     import torch
     from spread_spectrum_watermarking_torch.kernels import read_tail as k5

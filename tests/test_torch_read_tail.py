@@ -23,9 +23,9 @@ from spread_spectrum_watermarking_tpu.ops import colorspace as jcs
 from spread_spectrum_watermarking_tpu.ops import dct as jd
 
 GEOMETRIES = [(64, 96), (96, 64), (37, 59)]
-# The kernel's output tile along L (csrc/wgmma_tile.cuh kRows) and its
-# stage depth along S (kDepth).
-TILE, DEPTH = 128, 64
+# The kernel's output tile (csrc/wgmma_tile.cuh kRows), its stage depth
+# along S (kDepth), and the lanes of the dots' warp (csrc/read_tail.cu).
+TILE, DEPTH, LANES = 128, 64, 32
 
 
 def _pair(seed, h, w, b=2):
@@ -94,18 +94,24 @@ def test_reference_matches_jax_within_k5_bound(h, w, n, kind):
 
 
 def _emulate(derived, base, idx, fault=None):
-    """The kernel's order of operations in plain torch: one basis row per
-    index; each 64-deep stage of the first pass summed from zero, then
-    added to the f32 sum; each sum rounded to bf16 (td); exact products
-    with bf16 C_L; along each 128-wide tile of L, each of the four threads
-    of a row its 32 columns 8j + 2q + e in order (j, then e), then (s0 +
-    s1) + (s2 + s3); the tiles' partials added in order. Elementwise f32
-    ops only, so an image's result cannot depend on its batch.
+    """The kernel's order of operations in plain torch. The compaction
+    (``compact_rows_reference``): each image's distinct rows along S, a
+    slot per index. The product at those rows only, padded with zero rows
+    to whole 128-row tiles: each 64-deep stage of the first pass summed
+    from zero, then added to the f32 sum; each sum rounded to bf16 (D, a
+    row per slot). The dot of each index with its slot's row: exact
+    products with bf16 C_L over the row padded to whole 128-column tiles;
+    lane q of 32 sums its chunks of 8 columns l = 8 (q + 32 k) + e, one sum
+    per e with k ascending, then ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6
+    + s7)); the lanes are added as the xor shuffles 16, 8, 4, 2, 1 add
+    them. Elementwise f32 ops only, so an image's result cannot depend on
+    its batch.
 
     ``fault`` plants a defect a wrong kernel could have: ``"fp8"`` the luma
     operand rounded to fp8 e4m3, ``"row"`` the basis row of the next
-    coordinate for every seventh index, ``"td"`` the first pass left in
-    f32."""
+    coordinate for every seventh listed row, ``"td"`` the first pass left
+    in f32, ``"slot"`` slots 0 and 1 swapped (where an image has one
+    distinct row, slot 1 is a zero row of its tile)."""
     h, w = derived.shape[1:3]
     land = h <= w
     s, l = min(h, w), max(h, w)
@@ -115,33 +121,40 @@ def _emulate(derived, base, idx, fault=None):
     if not land:
         y = y.transpose(-1, -2)                       # (B, S, L)
     idx = idx.expand(derived.shape[0], idx.shape[-1])
-    a, b = (idx // w, idx % w) if land else (idx % w, idx // w)
+    b = idx % w if land else idx // w
+    _, rows, slot = k5.compact_rows_reference(idx, h, w, idx.shape[0])
+    if fault == "row":
+        rows = rows.clone()
+        rows[:, ::7] = torch.where(rows[:, ::7] >= 0,
+                                   (rows[:, ::7] + 1) % s, -1)
+    if fault == "slot":
+        slot = torch.where(slot == 0, 1, torch.where(slot == 1, 0, slot))
     cs = dct.basis_tensor(s, derived.device, torch.bfloat16).float()
     cl = dct.basis_tensor(l, derived.device, torch.bfloat16).float()
-    if fault == "row":
-        a = a.clone()
-        a[:, ::7] = (a[:, ::7] + 1) % s
-    rows = cs[a]                                      # (B, n, S)
-    acc = torch.zeros((*idx.shape, l))
+    pad = -(-rows.shape[-1] // TILE) * TILE - rows.shape[-1]
+    a_op = torch.nn.functional.pad(cs[rows.clamp(min=0)] * (
+        rows >= 0)[..., None], (0, 0, 0, pad))        # (B, R, S)
+    acc = torch.zeros((*a_op.shape[:2], l))
     for k0 in range(0, s, DEPTH):
         part = torch.zeros_like(acc)
         for k in range(k0, min(k0 + DEPTH, s)):
-            part = part + rows[..., k, None] * y[:, None, k, :]
+            part = part + a_op[..., k, None] * y[:, None, k, :]
         acc = acc + part
-    td = acc if fault == "td" else acc.to(torch.bfloat16).float()
+    d = acc if fault == "td" else acc.to(torch.bfloat16).float()
+    td = torch.gather(d, 1, slot[..., None].expand(*slot.shape, l))
     prod = td * cl[b]                                 # (B, n, L), exact
-    tiles = -(-l // TILE)
-    prod = torch.nn.functional.pad(prod, (0, tiles * TILE - l))
-    prod = prod.reshape(*idx.shape, tiles, 16, 4, 2)  # l = 128t + 8j + 2q + e
-    sq = torch.zeros((*idx.shape, tiles, 4))
-    for j in range(16):
-        for e in range(2):
-            sq = sq + prod[..., j, :, e]
-    partials = (sq[..., 0] + sq[..., 1]) + (sq[..., 2] + sq[..., 3])
-    out = torch.zeros(idx.shape)
-    for t in range(tiles):
-        out = out + partials[..., t]
-    return out
+    lanes = -(-l // (8 * LANES)) * 8 * LANES
+    prod = torch.nn.functional.pad(prod, (0, lanes - l))
+    prod = prod.reshape(*idx.shape, -1, LANES, 8)     # l = 8 (32 k + q) + e
+    sums = torch.zeros((*idx.shape, LANES, 8))
+    for k in range(prod.shape[-3]):
+        sums = sums + prod[..., k, :, :]
+    v = [sums[..., e] for e in range(8)]
+    lane = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]))
+    while lane.shape[-1] > 1:
+        half = lane.shape[-1] // 2
+        lane = lane[..., :half] + lane[..., half:]
+    return lane[..., 0]
 
 
 @pytest.mark.parametrize("h,w,n,kind", CASES)
@@ -159,14 +172,15 @@ def test_kernel_order_within_k5_bound_of_reference(h, w, n, kind):
     assert g["within_bound"] and g["within_f64"] and g["finite"]
 
 
-@pytest.mark.parametrize("fault", ["fp8", "row", "td"])
+@pytest.mark.parametrize("fault", ["fp8", "row", "td", "slot"])
 @pytest.mark.parametrize("h,w,n,kind", CASES)
 def test_planted_faults_fail_the_gates(h, w, n, kind, fault):
     # A kernel with one of these defects fails k5_bound or the f64 gate:
-    # a wrong basis row leaves the bound; an fp8 luma leaves it at larger
-    # n and fails the f64 gate at all n; a first pass not rounded to bf16
-    # stays within the bound (its errors add with random signs, the bound
-    # grows with the length of the dot) and fails the f64 gate.
+    # a wrong basis row or a wrong slot leaves the bound; an fp8 luma
+    # leaves it at larger n and fails the f64 gate at all n; a first pass
+    # not rounded to bf16 stays within the bound (its errors add with
+    # random signs, the bound grows with the length of the dot) and fails
+    # the f64 gate.
     derived, base = _pair(7 + h + n, h, w)
     idx = _indices(h, w, n, kind, seed=3)
     g = k5.gates(_emulate(derived, base, idx, fault), derived, base, idx)
@@ -186,6 +200,58 @@ def test_kernel_order_does_not_depend_on_the_batch(h, w):
         assert torch.equal(alone[0], batch[i])
     shared = _emulate(derived, base, idx[1])
     assert torch.equal(shared[1], batch[1])
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES + [(40, 300)])
+def test_kernel_order_does_not_depend_on_the_row_counts(h, w):
+    # One batch holds an image whose indices share one row, one whose
+    # indices cover min(n, S) rows and a random one; each reads alone what
+    # it reads in the batch.
+    n = 150
+    derived, base = _pair(12, h, w, b=3)
+    idx = _indices(h, w, n, "distinct", seed=6, b=3)
+    s = min(h, w)
+    land = h <= w
+    a = np.arange(n) % s
+    c = np.arange(n) % max(h, w)
+    idx[0] = torch.from_numpy(3 * w + c if land else c * w + 3)
+    idx[1] = torch.from_numpy(a * w + c if land else c * w + a)
+    count, _, _ = k5.compact_rows_reference(idx, h, w, 3)
+    assert count[0] == 1 and count[1] == min(n, s)
+    batch = _emulate(derived, base, idx)
+    for i in range(3):
+        alone = _emulate(derived[i:i + 1], base[i:i + 1], idx[i:i + 1])
+        assert torch.equal(alone[0], batch[i])
+    g = k5.gates(batch, derived, base, idx)
+    assert g["within_bound"] and g["within_f64"] and g["finite"]
+
+
+@pytest.mark.parametrize("case", ["distinct", "rows", "shared", "n20000"])
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_compaction_matches_torch_unique(h, w, case):
+    # The compaction's plain version: each image's count of distinct rows,
+    # the rows ascending and each index's slot are torch.unique's values,
+    # count and inverse, with repeats, one index set for the batch and
+    # more indices than rows.
+    n = 20000 if case == "n20000" else 200
+    kind = "rows" if case == "rows" else "distinct"
+    if case == "n20000":
+        rng = np.random.default_rng(h + w)
+        idx = torch.from_numpy(rng.integers(0, h * w, (2, n)))
+    else:
+        idx = _indices(h, w, min(n, h * w), kind, seed=8)
+    if case == "shared":
+        idx = idx[0]
+    count, rows, slot = k5.compact_rows_reference(idx, h, w, 2)
+    full = idx.expand(2, idx.shape[-1])
+    assert rows.shape == (2, min(idx.shape[-1], min(h, w)))
+    for i in range(2):
+        a = full[i] // w if h <= w else full[i] % w
+        uniq, inverse = torch.unique(a, sorted=True, return_inverse=True)
+        assert int(count[i]) == uniq.numel()
+        assert torch.equal(rows[i, :uniq.numel()], uniq)
+        assert bool((rows[i, uniq.numel():] == -1).all())
+        assert torch.equal(slot[i], inverse)
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
