@@ -15,7 +15,9 @@ Each copy builds its kernels into its own ``build/``. Shapes: K6a at
 48x1080x1920 and 2x2160x3840, K6b at both; CUDA events, the mean of
 five calls after one warm-up; at 48x1080x1920 also the largest
 error against the f64 product of the same f32 bases, in units of
-``2^-24 s |L| |X| |R|^T``. ``--ptxas`` also compiles the copy's
+``2^-24 s |L| |X| |R|^T``, and a digest of the output's bytes (``sha256``,
+its first 16 hex digits: two versions that agree there are bit-identical
+on the same inputs). ``--ptxas`` also compiles the copy's
 ``csrc/dct2d_fused.cu`` with ``-Xptxas=-v`` and prints each kernel's
 registers, spills and shared memory.
 """
@@ -23,6 +25,7 @@ registers, spills and shared memory.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import subprocess
@@ -99,6 +102,8 @@ def main() -> int:
             if b == 48:
                 out[f"{name}_{b}x{h}x{w}_f64_err_in_u_sum_abs"] = _f64_error(
                     x, fn, name == "k6b")
+                out[f"{name}_{b}x{h}x{w}_sha256"] = hashlib.sha256(
+                    fn(x).cpu().numpy().tobytes()).hexdigest()[:16]
         del x
         torch.cuda.empty_cache()
     if args.ptxas:

@@ -69,6 +69,24 @@
 // instruction peaks at 321 TFLOP/s of TF32, 65% of the card's peak,
 // scripts/mma_peak.py) and splitting only after all four fragments 8.0.
 //
+// The row-list form (K9, csrc/highest_read.cu; ssw_dct2d_pass_rows below)
+// is the same kernel under a template parameter: the basis operand's rows
+// come through each image's list of distinct rows, only the n tiles that
+// hold listed rows run (the others leave at once), and each slot's sums are
+// stored as a row of D. Its split and stages are K6a's, but it adds the
+// tensor cores' sum to the f32 total after every k-step of 8 (three
+// products), not every stage (kListSteps): the tensor cores' accumulation
+// rounds toward zero, so over a sum of like-signed terms (a low-frequency
+// row of a natural image) its error is one-sided, and the dot over L
+// carries it whole into the read. Summed per stage, K9's read erred by up
+// to 1.15 units of 2^-24 sum_l |C_L| sum_s |C_S y| against an f64 read
+// where cuBLAS's f32 pass and the gather-dot erred by 0.65; summed per
+// k-step by 0.25-0.47 against 0.61-1.51, at 9% more time (48x1080p and
+// 8x4K, both orientations, textures and random u8; NVIDIA H100 80GB HBM3,
+// 700 W; scripts/k9_errors.py on both forms). K6a's and K6b's own
+// instantiations take !kList and compile as before (214 and 228 registers,
+// outputs bit-identical to the form without the list; scripts/k6_ab.py).
+//
 // Ragged edges: rows are 16-byte copies (cp.async.cg with a zero-fill size)
 // where the contiguous length is a multiple of 4 floats and the matrix
 // starts 16-byte aligned; otherwise (W = 59, a view one float in) the same
@@ -92,6 +110,9 @@ constexpr int THREADS = 256;  // 2 warpgroups
 constexpr int LDT = BK + 4;   // pitch of a k-contiguous A tile, floats
 constexpr int LDX = BM + 8;   // pitch of an m-contiguous A tile, floats
 constexpr int SWIZZLED = 0;   // the pitch argument for wgmma's layout
+// The row-list form's k-steps a tensor-core sum spans before it is added
+// to the f32 total (K6a's: a stage's four).
+constexpr int kListSteps = 1;
 
 // A stage: the basis's parts (rows n, columns k) in wgmma's swizzled
 // K-major layout, each 1024-byte aligned, and the A operand's tile (T's
@@ -264,31 +285,78 @@ struct Flags {
   bool vec_a, vec_b, vec_out;
 };
 
+// The row-list form of a pass (K9's first pass, csrc/highest_read.cu): the
+// basis operand's n rows through each image's list of rows, n over the
+// list's slots, so only the n tiles that hold listed rows run. The basis's
+// TF32 parts are (S, b_pitch) row-major, zero past S, b_pitch a multiple
+// of 4 (every 16-byte copy whole); slot j of image i is stored as the row
+// out + i * d_image + j * d_pitch, m along it (T^T's row in pass 1's form,
+// Y's column in pass 2's).
+struct RowList {
+  const int* count;  // each image's count of listed rows
+  const int* list;   // image i's rows at list + i * cap
+  int cap, b_pitch, d_pitch;
+  long long d_image;
+};
+
 // One pass over one image: out = scale * (A @ B), B(k, n) = basis[n][k]
 // from the basis's TF32 parts b_hi, b_lo. Pass 1 (kPass1): A(m, k) =
 // x[k][m] with m over W, n and k over H, out[n][m] = T; pass 2: A(m, k) =
 // x[m][k] (x = T) with m over H, n and k over W, out[m][n] = Y. x, out:
-// (batch, h, w) f32.
-template <bool kPass1>
+// (batch, h, w) f32. kList: B(k, n) = basis[list[n]][k] for the slots n of
+// the image's list (RowList), the rest as above; K6a/K6b take !kList, and
+// `rl` is then not read.
+template <bool kPass1, bool kList = false>
 __global__ void __launch_bounds__(THREADS, 1)
 pass_kernel(const float* __restrict__ x, const float* __restrict__ b_hi,
             const float* __restrict__ b_lo, float* __restrict__ out, int h,
-            int w, float scale, Flags f) {
+            int w, float scale, Flags f, RowList rl) {
   extern __shared__ __align__(128) unsigned char smem[];
   // The B tiles need 1024-byte alignment; the launch adds 1024 bytes for it.
   Stage* st = reinterpret_cast<Stage*>(
       smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
-  const int m_dim = kPass1 ? w : h, n_dim = kPass1 ? h : w;
+  const int m_dim = kPass1 ? w : h;
   const int k_dim = kPass1 ? h : w;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // The list's slots are the n range: a tile past the image's count has
+  // nothing to compute (the whole block leaves, before any barrier).
+  const int n_dim = kList ? rl.count[blockIdx.z] : kPass1 ? h : w;
+  if (kList && n0 >= n_dim) return;
   const size_t img = size_t(blockIdx.z) * h * w;
   const float* xi = x + img;
   const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int wm = (threadIdx.x / 32) * 16;  // this warp's 16 rows
+  // kList: the basis rows of the four tile rows this thread copies, r =
+  // threadIdx.x / 8 + 32 i (load_k's vector mapping), -1 past the count.
+  int src[BN * BK / 4 / THREADS];
+  if constexpr (kList) {
+#pragma unroll
+    for (int i = 0; i < BN * BK / 4 / THREADS; ++i) {
+      const int j = n0 + int(threadIdx.x) / (BK / 4) + i * (THREADS / (BK / 4));
+      src[i] = j < n_dim ? rl.list[size_t(blockIdx.z) * rl.cap + j] : -1;
+    }
+  }
+  // kList: load_k's vector copy of the B tiles with the rows from `src`.
+  auto load_listed = [&](float* dst, const float* p, int k0) {
+#pragma unroll
+    for (int i = 0; i < BN * BK / 4 / THREADS; ++i) {
+      const int c = threadIdx.x + i * THREADS;
+      const int r = c / (BK / 4), k = (c % (BK / 4)) * 4;
+      const int gk = k0 + k;
+      const bool in = src[i] >= 0 && gk < k_dim;
+      cp16(dst + at_k<SWIZZLED>(r, k),
+           in ? p + size_t(src[i]) * rl.b_pitch + gk : p, in ? 16 : 0);
+    }
+  };
 
   auto load = [&](Stage& s, int k0) {
-    load_k<BN, SWIZZLED>(s.b_hi, b_hi, n_dim, k_dim, n0, k0, f.vec_b);
-    load_k<BN, SWIZZLED>(s.b_lo, b_lo, n_dim, k_dim, n0, k0, f.vec_b);
+    if constexpr (kList) {
+      load_listed(s.b_hi, b_hi, k0);
+      load_listed(s.b_lo, b_lo, k0);
+    } else {
+      load_k<BN, SWIZZLED>(s.b_hi, b_hi, n_dim, k_dim, n0, k0, f.vec_b);
+      load_k<BN, SWIZZLED>(s.b_lo, b_lo, n_dim, k_dim, n0, k0, f.vec_b);
+    }
     if (kPass1)
       load_m(s.a, xi, h, w, k0, m0, f.vec_a);
     else
@@ -313,6 +381,11 @@ pass_kernel(const float* __restrict__ x, const float* __restrict__ b_hi,
     const Stage& s = st[kt % STAGES];
     const uint64_t desc_hi = sw128_desc(s.b_hi), desc_lo = sw128_desc(s.b_lo);
     uint32_t ah[BK / 8][4], al[BK / 8][4];
+    if constexpr (kList) {  // the next stage's copies, before the products
+      const int next = kt + STAGES - 1;
+      if (next < ktiles) load(st[next % STAGES], next * BK);
+      cp_commit();
+    }
 #pragma unroll
     for (int q = 0; q < BK / 8; ++q) {
       // This warp's A fragment of k-step q, split: (g, t), (g+8, t),
@@ -332,18 +405,28 @@ pass_kernel(const float* __restrict__ x, const float* __restrict__ b_hi,
       // k-step of 8 is 32 bytes along the swizzled rows: 2 in the
       // descriptor's 16-byte units.
       wgmma_fence();
-      wgmma(part, al[q], desc_hi + 2 * q, q > 0);
+      wgmma(part, al[q], desc_hi + 2 * q, kList ? q % kListSteps > 0 : q > 0);
       wgmma(part, ah[q], desc_lo + 2 * q, 1);
       wgmma(part, ah[q], desc_hi + 2 * q, 1);
-    }
-    wgmma_commit();
-    // The next stage's copies are issued while the products run.
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load(st[next % STAGES], next * BK);
-    cp_commit();
-    wgmma_wait_all();
+      if constexpr (kList) {
+        if ((q + 1) % kListSteps == 0) {
+          wgmma_commit();
+          wgmma_wait_all();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+          for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+        }
+      }
+    }
+    if constexpr (!kList) {
+      wgmma_commit();
+      // The next stage's copies are issued while the products run.
+      const int next = kt + STAGES - 1;
+      if (next < ktiles) load(st[next % STAGES], next * BK);
+      cp_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    }
   }
   cp_wait<0>();
 
@@ -356,7 +439,12 @@ pass_kernel(const float* __restrict__ x, const float* __restrict__ b_hi,
       const int gn = n0 + 8 * j + 2 * t;
       const float v0 = __fmul_rn(acc[4 * j + 2 * half], scale);
       const float v1 = __fmul_rn(acc[4 * j + 2 * half + 1], scale);
-      if (kPass1) {  // T[n][m]
+      if constexpr (kList) {  // slot n's row, m along it
+        float* dst = out + size_t(blockIdx.z) * rl.d_image +
+                     size_t(gn) * rl.d_pitch + gm;
+        if (gn < n_dim) dst[0] = v0;
+        if (gn + 1 < n_dim) dst[rl.d_pitch] = v1;
+      } else if (kPass1) {  // T[n][m]
         float* dst = out + img + size_t(gn) * w + gm;
         if (gn < n_dim) dst[0] = v0;
         if (gn + 1 < n_dim) dst[w] = v1;
@@ -373,17 +461,20 @@ pass_kernel(const float* __restrict__ x, const float* __restrict__ b_hi,
   }
 }
 
-template <bool kPass1>
+// kList: n runs over the list's `cap` slots (RowList).
+template <bool kPass1, bool kList = false>
 int launch(const float* x, const float* b_hi, const float* b_lo, float* out,
-           int batch, int h, int w, float scale, Flags f, cudaStream_t stream) {
+           int batch, int h, int w, float scale, Flags f, cudaStream_t stream,
+           RowList rl = {}) {
   const size_t smem = STAGES * sizeof(Stage) + 1024;
-  auto kernel = pass_kernel<kPass1>;
+  auto kernel = pass_kernel<kPass1, kList>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const int m = kPass1 ? w : h, n = kPass1 ? h : w;
+  const int m = kPass1 ? w : h, n = kList ? rl.cap : kPass1 ? h : w;
   const dim3 grid(cdiv(n, BN), cdiv(m, BM), batch);
-  kernel<<<grid, THREADS, smem, stream>>>(x, b_hi, b_lo, out, h, w, scale, f);
+  kernel<<<grid, THREADS, smem, stream>>>(x, b_hi, b_lo, out, h, w, scale, f,
+                                          rl);
   return int(cudaGetLastError());
 }
 
@@ -411,4 +502,30 @@ extern "C" int ssw_dct2d_fused(const float* x, const float* left_hi,
                  w % 2 == 0 && aligned(out, 8)};
   return launch<false>(work, right_hi, right_lo, out, batch, h, w, scale, f2,
                        stream);
+}
+
+// K9's first pass (csrc/highest_read.cu): the rows D[j] = sum_s C_S[list[j],
+// s] y(s, :) of each image's listed rows only, 3xTF32 as K6a's passes. y:
+// (batch, h, w) f32, contiguous; s_hi, s_lo: the TF32 parts of the DCT-II
+// basis of S = min(h, w), (S, s_pitch) row-major, zeros past S, s_pitch a
+// multiple of 4, 16-byte aligned; count, list: each image's count of rows
+// and its rows (cap apart); d: slot j of image i at d + (i * cap + j) *
+// d_pitch, L = max(h, w) floats. Landscape (h <= w) runs pass 1's form
+// (the list picks rows of C_h), portrait pass 2's (rows of C_w). One launch
+// on `stream`; returns its CUDA error code.
+extern "C" int ssw_dct2d_pass_rows(const float* y, const float* s_hi,
+                                   const float* s_lo, int s_pitch,
+                                   const int* count, const int* list, int cap,
+                                   float* d, int d_pitch, int batch, int h,
+                                   int w, cudaStream_t stream) {
+  if (s_pitch % 4 != 0 || !aligned(s_hi, 16) || !aligned(s_lo, 16))
+    return int(cudaErrorInvalidValue);
+  const RowList rl{count, list, cap, s_pitch, d_pitch,
+                   (long long)cap * d_pitch};
+  const Flags f{w % 4 == 0 && aligned(y, 16), true, false};
+  if (h <= w)
+    return launch<true, true>(y, s_hi, s_lo, d, batch, h, w, 1.0f, f, stream,
+                              rl);
+  return launch<false, true>(y, s_hi, s_lo, d, batch, h, w, 1.0f, f, stream,
+                             rl);
 }

@@ -26,12 +26,12 @@
 //
 // Design: four launches, the product on the shared Hopper mainloop
 // (csrc/wgmma_tile.cuh) with M = the image's distinct rows, N = L, K = S:
-//   1. compact_kernel, one block an image: marks the rows {a_i} in a bitmap
-//      over S in shared memory, counts them by a block-wide scan, and writes
-//      the image's count of distinct rows, their ascending list and each
-//      index's place (slot) in it. An index outside [0, H W) fails an
-//      assert, as PyTorch's indexing kernels do; the launches after it never
-//      run.
+//   1. compact_kernel (csrc/compact_rows.cuh, shared with K9), one block
+//      an image: marks the rows {a_i} in a bitmap over S in shared memory,
+//      counts them by a block-wide scan, and writes the image's count of
+//      distinct rows, their ascending list and each index's place (slot) in
+//      it. An index outside [0, H W) fails an assert, as PyTorch's indexing
+//      kernels do; the launches after it never run.
 //   2. operands_kernel writes both bf16 operands as tile images: B, the pair
 //      luma with rows along L and k along S (csrc/luma_tiles.cuh; 16-byte
 //      loads where the images' rows are 16-byte aligned, as at 1080p and
@@ -56,25 +56,23 @@
 // models/pipeline.py). No float atomics; the bitmap's integer atomicOr
 // commutes. No (B, H, W) plane is written: the largest store is the B
 // operand, one bf16 per pixel, which K1's pair mode writes too.
-#include <cassert>
-
+#include "compact_rows.cuh"
 #include "luma_tiles.cuh"
 
 namespace {
 
 using ssw::luma::kTileThreads;
 using ssw::luma::Mode;
+using ssw::rows::compact_kernel;
+using ssw::rows::kCompactSmem;
+using ssw::rows::kCompactThreads;
 using ssw::wg::cdiv;
 using ssw::wg::kDepth;
 using ssw::wg::kRows;
 using ssw::wg::kTile;
 using ssw::wg::TileAt;
 
-constexpr int kCompactThreads = 512;
 constexpr int kDotThreads = 256;  // 8 warps, one index each
-// The compaction's dynamic shared memory, beside its static warp sums.
-constexpr size_t kCompactSmem =
-    48 * 1024 - sizeof(int) * (kCompactThreads / 32);
 
 // The scratch for `batch` images. work (bf16): B, the luma (rows along L),
 // of every image, then A, the basis rows of the list (cap = min(n, S) rows
@@ -96,82 +94,6 @@ struct Layout {
     return (long long)batch * (1 + cap + n);
   }
 };
-
-// The index's coordinates: along S (a) and along L (b); false for an index
-// outside [0, h w).
-__device__ __forceinline__ bool coords(long long id, int h, int w,
-                                       bool landscape, int& a, int& b) {
-  if (id < 0 || id >= (long long)h * w) return false;
-  const int r = int(id / w), c = int(id % w);
-  a = landscape ? r : c;
-  b = landscape ? c : r;
-  return true;
-}
-
-// Block `image`: the image's distinct rows. Dynamic shared memory: the
-// bitmap over S (words of 32 rows), then each word's count of rows before
-// it. Each thread scans a run of consecutive words, so the list comes out
-// ascending.
-__global__ void __launch_bounds__(kCompactThreads)
-compact_kernel(const long long* __restrict__ idx, long long idx_stride,
-               int n, int h, int w, int s, int cap, int* __restrict__ count,
-               int* __restrict__ list, int* __restrict__ slots) {
-  extern __shared__ uint32_t bits[];
-  __shared__ int warp_sums[kCompactThreads / 32];
-  const int words = cdiv(s, 32);
-  int* before = reinterpret_cast<int*>(bits + words);
-  const int image = blockIdx.x, lane = threadIdx.x % 32,
-            warp = threadIdx.x / 32;
-  const bool landscape = h <= w;
-  const long long* ix = idx + image * idx_stride;
-  for (int k = threadIdx.x; k < words; k += kCompactThreads) bits[k] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kCompactThreads) {
-    int a = 0, b = 0;
-    const bool in_range = coords(ix[i], h, w, landscape, a, b);
-    assert(in_range && "read_tail: an index outside [0, h w)");
-    if (in_range) atomicOr(&bits[a >> 5], 1u << (a & 31));
-  }
-  __syncthreads();
-  const int per = cdiv(words, kCompactThreads);
-  const int k0 = min(int(threadIdx.x) * per, words),
-            k1 = min(k0 + per, words);
-  int mine = 0;
-  for (int k = k0; k < k1; ++k) mine += __popc(bits[k]);
-  int incl = mine;  // inclusive scan within the warp
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < kCompactThreads / 32 ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += u;
-    }
-    if (lane < kCompactThreads / 32) warp_sums[lane] = v;
-  }
-  __syncthreads();
-  int place = incl - mine + (warp > 0 ? warp_sums[warp - 1] : 0);
-  if (threadIdx.x == kCompactThreads - 1) count[image] = place + mine;
-  int* out = list + (long long)image * cap;
-  for (int k = k0; k < k1; ++k) {
-    before[k] = place;
-    for (uint32_t m = bits[k]; m != 0; m &= m - 1)
-      out[place++] = 32 * k + __ffs(m) - 1;
-  }
-  __syncthreads();
-  int* slot = slots + (long long)image * n;
-  for (int i = threadIdx.x; i < n; i += kCompactThreads) {
-    int a = 0, b = 0;
-    if (coords(ix[i], h, w, landscape, a, b))
-      slot[i] = before[a >> 5] + __popc(bits[a >> 5] & ((1u << (a & 31)) - 1));
-  }
-}
 
 // Tile (mt, kt) of image `image`'s A: row r is the basis row C_S[list[j], :]
 // (k tile kt of it) for j = 128 mt + r < rows, zero past it, from the tile
@@ -361,9 +283,7 @@ extern "C" int ssw_read_tail(const uint8_t* derived, const uint8_t* base,
   int* list = meta + batch;
   int* slots = list + (long long)batch * lay.cap;
 
-  // 8 bytes a 32 rows: within the 48 KB a launch gets without opting in
-  // up to S = 196,607, far past any image the card's memory holds.
-  const size_t smem = 2 * sizeof(uint32_t) * size_t(cdiv(s, 32));
+  const size_t smem = ssw::rows::compact_smem(s);
   if (smem > kCompactSmem) return int(cudaErrorInvalidValue);
   compact_kernel<<<batch, kCompactThreads, smem, stream>>>(
       idx, idx_stride, n, h, w, s, lay.cap, count, list, slots);

@@ -9,9 +9,10 @@ tier: the full f32 transform (:func:`_forward`, kernel K6a on the card),
 the exact selection ``ranking.top_indices``, and either the sparse inverse
 of the n changed coefficients (:func:`_sparse_idct_delta`, an f32 product)
 or, with ``sparse_idct=False``, the full inverse transform of the changed
-plane (kernel K6b). Reads transform the derived image only at the n ranked
-indices (``dct.dct2_coeffs_at``), or in full with ``sparse_derived=False``
-(:func:`prepare_derived`).
+plane (kernel K6b). The luma of a u8 image is kernel K8 on the card. Reads
+transform the derived image only at the n ranked indices (kernel K9 on a
+u8 image on the card, ``dct.dct2_coeffs_at`` otherwise), or in full with
+``sparse_derived=False`` (:func:`prepare_derived`).
 
 ``Precision.HIGH`` and ``Precision.DEFAULT`` are the fast tiers. They
 differ only in the base image's first pass; on a u8 image each stage runs
@@ -67,6 +68,7 @@ from ..config import Method, Precision, ReadConfig, WriteConfig
 from ..kernels.add_quantize import add_quantize
 from ..kernels.dct2d_fused import inverse_scale
 from ..kernels.embed_epilogue import delta_plane, embed_epilogue
+from ..kernels.highest_read import highest_read
 from ..kernels.luma_pass import luma_pass
 from ..kernels.read_tail import read_tail
 from ..ops import colorspace, dct, modulation, ranking
@@ -74,9 +76,22 @@ from ..ops import colorspace, dct, modulation, ranking
 
 def _forward(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
     """RGB (..., H, W, 3) -> the luma plane's f32 DCT (..., H, W) at the
-    tier: the prologue of the HIGHEST Writer and Reader (kernel K6a on the
-    card) and of ``prepare_base``/``prepare_derived`` at every tier."""
+    tier: the prologue of the HIGHEST Writer and Reader (kernels K8, the u8
+    luma, and K6a on the card) and of ``prepare_base``/``prepare_derived``
+    at every tier."""
     return dct.dct2_2d(colorspace.luma(rgb), precision=precision)
+
+
+def _read_highest(derived: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The derived image's f32 coefficients at the n ranked indices, the
+    HIGHEST read: for a u8 image kernel K8's luma, then kernel K9 (the
+    first pass at the indices' distinct rows only, 3xTF32, then the dots)
+    on the card and its plain version, ``dct.dct2_coeffs_at``, on the CPU;
+    for other images ``dct.dct2_coeffs_at`` of the f32 luma."""
+    y = colorspace.luma(derived)
+    if derived.dtype == torch.uint8:
+        return highest_read(y, idx)
+    return dct.dct2_coeffs_at(y, idx)
 
 
 def _half_pass(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
@@ -366,7 +381,7 @@ def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
     if config.precision is Precision.HIGHEST:
         marked, idx, base_vals = _embed_highest(rgb, marks, config, quantize,
                                                 True)
-        derived_vals = dct.dct2_coeffs_at(colorspace.luma(marked), idx)
+        derived_vals = _read_highest(marked, idx)
         ext = _extract_values(rconfig, idx, base_vals, derived_vals)
     else:
         marked, idx, original = _embed_fast(rgb, marks, config, quantize)
@@ -476,7 +491,7 @@ def _extract_fused(base: torch.Tensor, derived: torch.Tensor, n: int,
     idx = ranking.top_indices(coeffs, n, config.ordering,
                               custom_metric=config.custom_ordering)
     base_vals = torch.gather(coeffs.reshape(coeffs.shape[0], -1), -1, idx)
-    derived_vals = dct.dct2_coeffs_at(colorspace.luma(derived), idx)
+    derived_vals = _read_highest(derived, idx)
     return _extract_values(config, idx, base_vals, derived_vals)
 
 

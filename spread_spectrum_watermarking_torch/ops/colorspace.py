@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..kernels import add_quantize
+from ..kernels import luma_u8 as k8
 
 # colorsys matrices (reference: src/yiq.rs:155-165), as the f32 values the
 # JAX package multiplies by.
@@ -71,7 +72,8 @@ def rgb_to_luma(rgb: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _luma_table(device: torch.device) -> torch.Tensor:
     """(2^24,) f32: :func:`rgb_to_luma` of :func:`u8_to_f32` of each colour,
-    at index ``(r << 16) | (g << 8) | b``; 64 MB, built once per device."""
+    at index ``(r << 16) | (g << 8) | b``; 64 MB, built once per device
+    (kernel K8's plain version, ``..kernels.luma_u8.luma_u8_reference``)."""
     v = torch.arange(1 << 24, dtype=torch.int32, device=device)
     rgb = torch.stack([v >> 16, (v >> 8) & 255, v & 255], dim=-1)
     return rgb_to_luma(u8_to_f32(rgb.to(torch.uint8)))
@@ -79,13 +81,11 @@ def _luma_table(device: torch.device) -> torch.Tensor:
 
 def luma_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
     """(..., 3) u8 -> (...) f32, bit for bit ``rgb_to_luma(u8_to_f32(x))``:
-    a lookup in the table of every colour's luma, which costs a fraction
-    of the f64 emulation of the FMA chain."""
-    if rgb_u8.dtype != torch.uint8:
-        raise TypeError("luma_u8 takes uint8 images")
-    c = rgb_u8.to(torch.int32)
-    idx = (c[..., 0] << 16) | (c[..., 1] << 8) | c[..., 2]
-    return _luma_table(rgb_u8.device)[idx]
+    kernel K8 on a CUDA tensor (``..kernels.luma_u8``), which never builds
+    the table; on the CPU a lookup in the table of every colour's luma
+    (its plain version), which costs a fraction of the f64 emulation of
+    the FMA chain."""
+    return k8.luma_u8(rgb_u8)
 
 
 def rgb_to_yiq(rgb: torch.Tensor) -> torch.Tensor:
@@ -125,8 +125,8 @@ def to_f32(rgb: torch.Tensor) -> torch.Tensor:
 
 def luma(rgb: torch.Tensor) -> torch.Tensor:
     """The f32 luma plane of integer or float RGB: :func:`rgb_to_luma` of
-    the f32 image (integers through :func:`u8_to_f32`; u8 by the table of
-    :func:`luma_u8`, which gives the same bits)."""
+    the f32 image (integers through :func:`u8_to_f32`; u8 by
+    :func:`luma_u8`, kernel K8 on the card, which gives the same bits)."""
     if rgb.dtype == torch.uint8:
         return luma_u8(rgb)
     return rgb_to_luma(to_f32(rgb))

@@ -20,7 +20,9 @@ from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
 from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
+from spread_spectrum_watermarking_torch.kernels import highest_read as k9
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
+from spread_spectrum_watermarking_torch.kernels import luma_u8 as k8
 from spread_spectrum_watermarking_torch.kernels import read_tail as k5
 from spread_spectrum_watermarking_torch.kernels import topk_select as k3
 from spread_spectrum_watermarking_torch.models import pipeline as tp
@@ -849,3 +851,180 @@ def test_fast_reads_go_through_k5(cuda, precision):
     sims = [torch.diagonal(tw.similarity(e, marks[:, 0])) for e in (ext, full)]
     assert bool(((sims[0] - sims[1]).abs() <= 0.1).all())
     assert bool((sims[0] > 6.0).all())
+
+
+def _luma_bits_equal(x):
+    """K8 on ``x`` (one launch) against the table, bit for bit."""
+    before = k8.LAUNCHES
+    t = k8.luma_u8(x)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES == before + 1
+    r = k8.luma_u8_reference(x)
+    assert t.shape == x.shape[:-1] and t.dtype == torch.float32
+    assert torch.equal(t.view(torch.int32), r.view(torch.int32))
+
+
+def test_luma_u8_kernel_bit_equal_on_every_colour(cuda):
+    # One 4096 x 4096 image holds every colour once (the 16-byte path), and
+    # the same bytes one byte into their storage (the byte path).
+    v = torch.arange(1 << 24, dtype=torch.int32, device=cuda)
+    rgb = torch.stack([v >> 16, (v >> 8) & 255, v & 255], -1).to(
+        torch.uint8).reshape(4096, 4096, 3)
+    _luma_bits_equal(rgb)
+    _luma_bits_equal(_one_byte_in(rgb))
+
+
+@pytest.mark.parametrize("view", ["batch", "portrait", "odd_count",
+                                  "strided", "one_byte_in", "single",
+                                  "five_dims"])
+def test_luma_u8_kernel_bit_equal_on_views(cuda, view):
+    # A batch (16-pixel groups), portrait, a pixel count not a multiple of
+    # 16 (the byte tail), strided and misaligned views (byte loads), one
+    # image, and leading dimensions folded.
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 64, 96, 3),
+                                      dtype=np.uint8)).to(cuda)
+    if view == "portrait":
+        x = x.transpose(1, 2).contiguous()
+    elif view == "odd_count":
+        x = x[:, :37, :53].contiguous()
+    elif view == "strided":
+        x = x[:, 1::2, ::3]
+    elif view == "one_byte_in":
+        x = _one_byte_in(x)
+    elif view == "single":
+        x = x[1]
+    elif view == "five_dims":
+        x = x.reshape(3, 1, 64, 96, 3)
+    _luma_bits_equal(x)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 20000])
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_highest_read_kernel_matches_plain(cuda, h, w, n):
+    # Within k9_bound (K6a's TF32 split of one pass, the first pass's and
+    # the dots' f32 sums in another order) and no further from the f64
+    # read than highest_read.gates allows.
+    rgb, _ = _images(15, h, w, cuda)
+    y = colorspace.luma(rgb)
+    idx = _ranked(h, w, n, cuda)
+    before = (k9.LAUNCHES, k6.FORWARD_LAUNCHES)
+    t = k9.highest_read(y, idx)
+    torch.cuda.synchronize()
+    assert (k9.LAUNCHES, k6.FORWARD_LAUNCHES) == (before[0] + 1, before[1])
+    assert t.dtype == torch.float32 and t.shape == (2, n)
+    g = k9.gates(t, y, idx)
+    assert g["within_bound"] and g["within_f64"] and g["finite"], g
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (1920, 1080)])
+def test_highest_read_no_worse_than_the_plain_route(cuda, h, w):
+    # Over a batch of ranked reads the 3xTF32 first pass lies no further
+    # from the f64 read than cuBLAS's f32 pass does.
+    rng = np.random.default_rng(16)
+    rgb = torch.from_numpy(rng.integers(0, 256, (4, h, w, 3),
+                                        dtype=np.uint8)).to(cuda)
+    y = colorspace.luma(rgb)
+    idx = tw.prepare_base(rgb, 1000)[1]
+    g = k9.gates(k9.highest_read(y, idx), y, idx)
+    assert g["within_bound"] and g["no_worse_than_plain"], g
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_highest_read_repeats_and_ignores_the_batch(cuda, h, w):
+    # Bit for bit: a second call; each image alone, in other splits of the
+    # batch, and with one shared index set; so a Reader's chunk of any size
+    # reads what the Writer's verify read.
+    rgb, _ = _images(17, h, w, cuda, b=4)
+    y = colorspace.luma(rgb)
+    idx = _ranked(h, w, 500, cuda, b=4)
+    whole = k9.highest_read(y, idx)
+    assert torch.equal(whole, k9.highest_read(y, idx))
+    for lo, hi in ((0, 1), (1, 4), (2, 3)):
+        part = k9.highest_read(y[lo:hi].contiguous(), idx[lo:hi].contiguous())
+        assert torch.equal(part, whole[lo:hi])
+    shared = k9.highest_read(y, idx[2])
+    assert torch.equal(shared[2], whole[2])
+    assert torch.equal(k9.highest_read(y, idx[2].expand(4, -1)), shared)
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (640, 444)])
+def test_highest_read_mixed_row_counts_match_each_image_alone(cuda, h, w):
+    # One batch: an image whose 1000 indices share one row, one whose
+    # indices cover min(n, S) rows, one of random indices; the pass runs a
+    # different number of n tiles for each, and each image reads, bit for
+    # bit, what it reads alone.
+    n = 1000
+    rgb, _ = _images(18, h, w, cuda, b=3)
+    y = colorspace.luma(rgb)
+    idx = _ranked(h, w, n, cuda, b=3)
+    s, l = min(h, w), max(h, w)
+    a = torch.arange(n, device=cuda) % s
+    c = torch.arange(n, device=cuda) % l
+    land = h <= w
+    idx[0] = 5 * w + c if land else c * w + 5
+    idx[1] = a * w + c if land else c * w + a
+    whole = k9.highest_read(y, idx)
+    g = k9.gates(whole, y, idx)
+    assert g["within_bound"] and g["within_f64"] and g["finite"], g
+    for i in range(3):
+        alone = k9.highest_read(y[i:i + 1].contiguous(),
+                                idx[i:i + 1].contiguous())
+        assert torch.equal(alone[0], whole[i])
+
+
+_K9_OUT_OF_RANGE = textwrap.dedent("""
+    import torch
+    from spread_spectrum_watermarking_torch.kernels import highest_read as k9
+    y = torch.zeros((2, 37, 59), device="cuda")
+    idx = torch.zeros((2, 64), dtype=torch.int64, device="cuda")
+    idx[{image}, 5] = {value}
+    k9.highest_read(y, idx)
+    torch.cuda.synchronize()
+""")
+
+
+def test_highest_read_raises_at_an_index_out_of_range(cuda):
+    # The compaction's device-side assert fails, as K5's does; each bad
+    # call runs in a process of its own.
+    root = Path(__file__).resolve().parent.parent
+    for image, value in ((0, -1), (1, 37 * 59)):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             _K9_OUT_OF_RANGE.format(image=image, value=value)],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        assert proc.returncode != 0
+        assert "device-side assert" in proc.stderr, proc.stderr[-2000:]
+    y = torch.zeros((2, 37, 59), device=cuda)
+    idx = _ranked(37, 59, 64, cuda)
+    assert bool(k9.highest_read(y, idx).isfinite().all())
+    with pytest.raises(ValueError):
+        k9.highest_read(y, idx.int())  # int32 indices
+    with pytest.raises(ValueError):
+        k9.highest_read(y.transpose(1, 2), idx)  # not contiguous
+    with pytest.raises(ValueError):
+        k9.highest_read(y, idx.cpu())  # CPU/CUDA mix
+    with pytest.raises(TypeError):
+        k8.luma_u8(y[..., :3])  # not u8
+
+
+def test_highest_path_goes_through_k8_and_k9(cuda):
+    # One HIGHEST embed_verified: K8 twice (the base's and the derived
+    # image's luma), K6a, K7 and K9 once; extract reads through K8 twice
+    # and K9 once more, bit-equal to embed_verified's read; a float image
+    # takes neither.
+    rng = np.random.default_rng(19)
+    rgb = torch.from_numpy(rng.integers(0, 256, (2, 96, 128, 3),
+                                        dtype=np.uint8)).to(cuda)
+    marks = torch.from_numpy(rng.standard_normal((2, 1, 200)).astype(
+        np.float32)).to(cuda)
+    before = (k8.LAUNCHES, k9.LAUNCHES, k6.FORWARD_LAUNCHES, k7.LAUNCHES)
+    marked, ext = tw.embed_verified(rgb, marks)
+    torch.cuda.synchronize()
+    assert (k8.LAUNCHES, k9.LAUNCHES, k6.FORWARD_LAUNCHES, k7.LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1)
+    assert torch.equal(tw.extract(rgb, marked, 200), ext)
+    assert (k8.LAUNCHES, k9.LAUNCHES) == (before[0] + 4, before[1] + 2)
+    tw.extract(rgb.float() / 255.0, marked.float() / 255.0, 200)
+    assert (k8.LAUNCHES, k9.LAUNCHES) == (before[0] + 4, before[1] + 2)
+
