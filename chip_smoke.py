@@ -41,8 +41,9 @@ Phases, one line of output each, any failure exits non-zero:
    1080), on a strided view and on an image one byte into its storage;
    its time on both contents beside the table's, its bound and the peak
    memory of a call beside the table's;
-3d. K9 (the HIGHEST read: the compaction, K6a's 3xTF32 pass at the
-   distinct rows of the indices, the dots) against its plain version
+3d. K9 (the HIGHEST read: the compaction, the 3xTF32 first pass at the
+   distinct rows of the indices on 64-slot tiles walked persistently, the
+   dots) against its plain version
    (``dct.dct2_coeffs_at``) within ``k9_bound``, with an f64 error at most
    the plain version's plus one pass's split term and, at 48 x 1080p and
    8 x 4K in landscape and portrait on 1/f textures and on random u8
@@ -52,7 +53,8 @@ Phases, one line of output each, any failure exits non-zero:
    contents beside its plain version's and the f32 ``torch.matmul``
    pass's, its device launches (at most 3) and each one's device time,
    its peak memory beside the plain version's (never above it), and its
-   bound from the distinct rows of the run's indices;
+   bound from the distinct rows of the run's indices and its share of it,
+   the first pass's share of its own bound beside it;
 4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
    against their plain versions at 444x640, 640x444, 37x59, 48x1080x1920,
    1920x1080 and 2x2160x3840; K6a's top-1000 ranking against the plain
@@ -1467,8 +1469,7 @@ def _k9_timing(y, idx) -> dict:
     from spread_spectrum_watermarking_torch.ops import dct
 
     b, h, w = y.shape
-    n = idx.shape[-1]
-    s, l = min(h, w), max(h, w)
+    s = min(h, w)
     cs = dct.basis_tensor(s, y.device, torch.float32)
     rec = {"ms": time_ms(lambda: k9.highest_read(y, idx), 5),
            "plain_ms": time_ms(lambda: k9.highest_read_reference(y, idx), 5),
@@ -1477,25 +1478,58 @@ def _k9_timing(y, idx) -> dict:
            **_k5_device(lambda: k9.highest_read(y, idx)),
            "peak_mb": peak_mb(lambda: k9.highest_read(y, idx)),
            "plain_peak_mb": peak_mb(
-               lambda: k9.highest_read_reference(y, idx))}
-    # One first-pass row, S L long, per distinct (image, coordinate along
-    # S), three TF32 products each; an L-long f32 dot per index. The f32
-    # luma and the int64 indices in, f32 out; the bases (two TF32 parts of
-    # C_S, C_L).
+               lambda: k9.highest_read_reference(y, idx)),
+           **k9_bound_ms(y, idx)}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec.update(k9_pass_share(rec))
+    return rec
+
+
+#: K9's design, as the k9_time lines name it (csrc/highest_read.cu).
+K9_DESIGN = ("compaction; first pass at the distinct rows: 64-slot by "
+             "192-position tiles walked persistently over live tiles, a TMA "
+             "and cp.async producer warpgroup on mbarriers, 3xTF32 "
+             "wgmma.m64n64k8 with each k-step's f32 add overlapped with the "
+             "next step's products; f32 dots")
+
+
+def k9_pass_share(rec: dict) -> dict:
+    """The first pass's device ms (``pass_ms``, from ``rec['device_ms']``)
+    and its share of its own bound (``pass_share_of_bound``: the TF32
+    operations of the distinct rows, ``pass_bound_ms``)."""
+    ms = [v[0] for k, v in rec["device_ms"].items() if "pass_kernel" in k]
+    if not ms:
+        return {"pass_ms": None, "pass_share_of_bound": None}
+    return {"pass_ms": ms[0],
+            "pass_share_of_bound": rec["pass_bound_ms"] / ms[0]}
+
+
+def k9_bound_ms(y, idx) -> dict:
+    """K9's bound on ``(y, idx)`` (``distinct_rows``, ``bound_ms``,
+    ``bound_by``): one first-pass row, S L long, per distinct (image,
+    coordinate along S), three TF32 products each; an L-long f32 dot per
+    index. The f32 luma and the int64 indices in, f32 out; the bases (two
+    TF32 parts of C_S, C_L)."""
+    b, h, w = y.shape
+    n = idx.shape[-1]
+    s, l = min(h, w), max(h, w)
     a = (idx // w if h <= w else idx % w).expand(b, n).sort(-1).values
     rows = b + int((a.diff(dim=-1) != 0).sum())
     ops_ms = (3 * 2 * rows * s * l / TF32_PEAK
               + 2 * b * n * l / F32_PEAK) * 1e3
     bytes_ms = (4 * b * h * w + 12 * b * n + 4 * (2 * s * s + l * l)) \
         / HBM_RATE * 1e3
-    rec.update(distinct_rows=rows, bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-    return rec
+    # The first pass alone: its TF32 operations, or its read of the luma
+    # and the bases' parts.
+    pass_ms = max(3 * 2 * rows * s * l / TF32_PEAK,
+                  (4 * b * h * w + 8 * s * s) / HBM_RATE) * 1e3
+    return {"distinct_rows": rows, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "pass_bound_ms": pass_ms}
 
 
 def phase_k9() -> dict:
-    """K9 (the HIGHEST read: the compaction, K6a's 3xTF32 pass at the
+    """K9 (the HIGHEST read: the compaction, the 3xTF32 first pass at the
     distinct rows, the dots) against its plain version
     (``dct.dct2_coeffs_at``) through ``highest_read.gates`` and an f64
     error no larger than the plain route's: at 48 x 1080p and 8 x 4K, in
@@ -1520,7 +1554,8 @@ def phase_k9() -> dict:
             if h <= w:
                 rec = _k9_timing(y, idx)
                 times[content, b] = rec
-                log("k9_time", content=content, shape=[b, h, w], n=N, **rec)
+                log("k9_time", content=content, shape=[b, h, w], n=N,
+                    design=K9_DESIGN, **rec)
                 if rec["device_launches_per_call"] > 3:
                     raise AssertionError("K9 makes more than 3 device "
                                          "launches")

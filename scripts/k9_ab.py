@@ -22,9 +22,18 @@ harness's rate inputs, ``bench._inputs`` of numpy seed 0; ``textures``:
 1/f textures of seed 60) at 48 x 1080 x 1920, n = 1000, marked at
 HIGHEST and read at the base's ranked indices:
 
-- ``luma_ms`` and ``read_ms``: CUDA events, the mean of 5 after a warm-up
-  (8 x 2160 x 3840 too, ``read_4k_ms``), each with the peak memory of a
-  call (``*_peak_mb``), and on the change the read's ``highest_read.gates``;
+- ``reads``: K9's read (or the plain read) at 48 x 1080 x 1920, 48 x
+  1920 x 1080 (portrait) and 8 x 2160 x 3840, each with ``sha256`` (the
+  first 16 hex digits of the output's bytes; two checkouts that agree
+  there read bit for bit alike), ``inputs_sha256`` (of y and idx: the
+  same inputs), ``ms`` (CUDA events, the mean of 5 after a warm-up),
+  each launch's device ms (``device_ms``, from ``torch.profiler``), the
+  bound from the distinct first-pass rows (``chip_smoke.k9_bound_ms``)
+  and ``share_of_bound``, the first pass's own (``pass_ms``,
+  ``pass_share_of_bound``), and on a checkout with K9 its
+  ``highest_read.gates``;
+- ``luma_ms`` (CUDA events, the mean of 5 after a warm-up) and
+  ``luma_peak_mb``, ``read_peak_mb`` (the peak memory of a call);
 - ``call_ms`` and ``call_peak_mb``: one HIGHEST ``embed_verified`` call;
 - ``stages``: ``chip_smoke._stage_breakdown_highest`` with the
   checkout's read, three times (each stage's ms and their sum);
@@ -32,6 +41,7 @@ HIGHEST and read at the base's ranked indices:
   the harness's step; on random u8 that is ``bench.run_verified_bench``'s
   rate.
 
+``--reads-only`` prints the reads alone, without their gates.
 The card's name and power limit lead the line; any read outside its gates
 exits non-zero.
 """
@@ -39,6 +49,7 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
@@ -56,9 +67,34 @@ def _smoke():
     return mod
 
 
+SHAPES = ((48, 1080, 1920), (48, 1920, 1080), (8, 2160, 3840))
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _read(cs, read, y, idx) -> dict:
+    """One read's digests, time, device launches and share of its bound."""
+    import torch
+
+    out = read(y, idx)
+    torch.cuda.synchronize()
+    rec = {"sha256": _digest(out), "inputs_sha256": _digest(y, idx),
+           "ms": cs.time_ms(lambda: read(y, idx), 5),
+           **cs._k5_device(lambda: read(y, idx)), **cs.k9_bound_ms(y, idx)}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec.update(cs.k9_pass_share(rec))
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", required=True)
+    parser.add_argument("--reads-only", action="store_true")
     args = parser.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -83,8 +119,23 @@ def main() -> int:
     ok = True
     cfg = wm.WriteConfig()  # HIGHEST, the default
     for content, seed in (("random_u8", 0), ("textures", 60)):
-        rec = {}
-        y, idx = cs.k9_inputs(content, seed, 48, 1080, 1920)
+        rec = {"reads": {}}
+        for b, h, w in SHAPES:
+            y, idx = cs.k9_inputs(content, seed, b, h, w)
+            rd = _read(cs, read, y, idx)
+            if k9 is not None and not args.reads_only:
+                g = k9.gates(read(y, idx), y, idx)
+                rd["gates"] = g
+                ok = ok and g["within_bound"] and g["within_f64"] and g[
+                    "no_worse_than_plain"] and g["finite"]
+            rec["reads"][f"{b}x{h}x{w}"] = rd
+            if (b, h, w) == SHAPES[0] and not args.reads_only:
+                rec["read_peak_mb"] = cs.peak_mb(lambda: read(y, idx))
+            del y, idx
+            torch.cuda.empty_cache()
+        out[content] = rec
+        if args.reads_only:
+            continue
         if content == "random_u8":
             rgb, marks = bench._inputs(np.random.default_rng(0), 48, 1080,
                                        1920, cs.N, torch.device("cuda"))
@@ -94,14 +145,6 @@ def main() -> int:
             marks = torch.randn((48, 1, cs.N), generator=gen, device="cuda")
         rec["luma_ms"] = cs.time_ms(lambda: colorspace.luma(rgb), 5)
         rec["luma_peak_mb"] = cs.peak_mb(lambda: colorspace.luma(rgb))
-        rec["read_ms"] = cs.time_ms(lambda: read(y, idx), 5)
-        rec["read_peak_mb"] = cs.peak_mb(lambda: read(y, idx))
-        if k9 is not None:
-            g = k9.gates(read(y, idx), y, idx)
-            rec["read_gates"] = g
-            ok = ok and g["within_bound"] and g["within_f64"] and g[
-                "no_worse_than_plain"] and g["finite"]
-        del y, idx
         rec["call_ms"] = cs.time_ms(lambda: wm.embed_verified(rgb, marks, cfg),
                                     5)
         rec["call_peak_mb"] = cs.peak_mb(
@@ -116,11 +159,6 @@ def main() -> int:
         rec["chain_images_per_sec"] = 48 / secs
         del rgb, marks
         torch.cuda.empty_cache()
-        y, idx = cs.k9_inputs(content, seed, 8, 2160, 3840)
-        rec["read_4k_ms"] = cs.time_ms(lambda: read(y, idx), 5)
-        del y, idx
-        torch.cuda.empty_cache()
-        out[content] = rec
     print(json.dumps(out), flush=True)
     return 0 if ok else 1
 

@@ -12,9 +12,10 @@ absolute terms:
 
 - ``d_err_kernel`` and ``d_err_cublas``: the largest error of the first
   pass's rows D against their f64 value, in units of ``2^-24 sum_s
-  |C_S[a, s] y(s, l)|``: K9's pass (``ssw_dct2d_pass_rows``, the rows of
-  each image's list) and cuBLAS's f32 pass of the plain route, each image's
-  largest and the median of those;
+  |C_S[a, s] y(s, l)|``: K9's pass (``ssw_highest_read_pass``, the rows
+  of each image's list; ``ssw_dct2d_pass_rows`` in a checkout before
+  it) and cuBLAS's f32 pass of the plain route, each image's largest and
+  the median of those;
 - ``f64_kernel`` and ``f64_plain``: the read's error (``highest_read.
   f64_error``'s unit) of K9 and of the plain route, the largest and the
   median image's; ``imgs_kernel_better``: the images where K9's largest
@@ -25,9 +26,8 @@ absolute terms:
 - ``k9_ms``: K9's time (CUDA events, mean of 5 after a warm-up).
 
 To compare two forms of the kernel, copy the package under the git-ignored
-``build/`` (edit the copy; e.g. ``kListSteps`` in
-``csrc/dct2d_fused.cu``) and run this script once with each on
-``PYTHONPATH`` in one call.
+``build/`` (edit the copy's ``csrc/highest_read.cu``) and run this script
+once with each on ``PYTHONPATH`` in one call.
 """
 
 from __future__ import annotations
@@ -66,15 +66,16 @@ def _pass_rows(y, count, rows):
     d = torch.zeros(b * cap * pitch, device=y.device)
     s_hi, s_lo = k9._short_parts(s, y.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel("ssw_dct2d_pass_rows",
-                       [p, p, p, i, p, p, i, p, i, i, i, i, p])
+    name = ("ssw_highest_read_pass"
+            if hasattr(_build.library(), "ssw_highest_read_pass")
+            else "ssw_dct2d_pass_rows")
+    fn = _build.kernel(name, [p, p, p, i, p, p, i, p, i, i, i, i, p])
     cnt = count.to(torch.int32).contiguous()
     lst = rows.clamp(min=0).to(torch.int32).contiguous()
     _build.check(fn(y.data_ptr(), s_hi.data_ptr(), s_lo.data_ptr(),
                     -(-s // 4) * 4, cnt.data_ptr(), lst.data_ptr(), cap,
                     d.data_ptr(), pitch, b, h, w,
-                    torch.cuda.current_stream().cuda_stream),
-                 "ssw_dct2d_pass_rows")
+                    torch.cuda.current_stream().cuda_stream), name)
     torch.cuda.synchronize()
     return d.view(b, cap, pitch)[..., :l]
 

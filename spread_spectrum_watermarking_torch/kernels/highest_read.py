@@ -11,13 +11,16 @@ what the kernel is held against on the card.
 
 The kernel (``csrc/highest_read.cu``, which says what bounds it on the
 H100 and how its design answers that) computes the first pass only at the
-distinct rows of the indices, on K6a's 3xTF32 pass in its row-list form
-(``csrc/dct2d_fused.cu``): in landscape (H <= W) ``num[i] = sum_w D[r_i, w]
+distinct rows of the indices, in K6a's 3xTF32 arithmetic
+(``csrc/tf32x3.cuh``): in landscape (H <= W) ``num[i] = sum_w D[r_i, w]
 C_w[c_i, w]`` with ``D[a, :] = sum_h C_h[a, h] y[h, :]`` for the listed
 rows a, ``r_i = idx_i // W``, ``c_i = idx_i % W``; portrait is the mirror.
 Three launches: the compaction of each image's rows (K5's,
 ``read_tail.compact_rows_reference`` is its plain version), the pass at
-those rows, the dots. Its sums run in another order than the plain
+those rows (tiles of 64 slots by 192 positions, walked by one persistent
+block per SM over the live tiles only, a producer warpgroup feeding a
+ring on mbarriers, each k-step's f32 add overlapped with the next step's
+products), the dots. Its sums run in another order than the plain
 version's and its first pass splits each operand into TF32 parts:
 :func:`k9_bound` is the per-index tolerance between the two,
 :func:`f64_error` the error against an f64 product, :func:`gates` both.
@@ -32,7 +35,7 @@ import torch
 
 from ..ops import dct
 from . import _build
-from .dct2d_fused import _MAX_GRID_YZ, SPLIT_TERMS, split_tf32
+from .dct2d_fused import SPLIT_TERMS, split_tf32
 
 #: Launches of the CUDA kernel in this process (plain-version calls excluded).
 LAUNCHES = 0
@@ -117,9 +120,6 @@ def _launch(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, h, w = y.shape
     s, l = min(h, w), max(h, w)
     n = idx.shape[-1]
-    if b > _MAX_GRID_YZ or -(-l // 128) > _MAX_GRID_YZ:
-        raise ValueError(f"highest_read takes at most {_MAX_GRID_YZ} images "
-                         f"and {_MAX_GRID_YZ * 128} rows, got {tuple(y.shape)}")
     if idx.stride(-1) != 1:
         idx = idx.contiguous()
     # An index set shared by the batch (stride 0) is read once per image.

@@ -973,6 +973,61 @@ def test_highest_read_mixed_row_counts_match_each_image_alone(cuda, h, w):
         assert torch.equal(alone[0], whole[i])
 
 
+@pytest.mark.parametrize("h,w", [(1080, 1920), (1920, 1080), (640, 444)])
+def test_highest_read_slot_tile_edges_match_each_image_alone(cuda, h, w):
+    # One batch of images whose indices need 1, 63, 64 and 65 distinct
+    # first-pass rows, the edges of the pass's 64-slot tiles: the batch
+    # passes the gates, and each image reads, bit for bit, what it reads
+    # alone.
+    n, counts = 1000, (1, 63, 64, 65, 1, 65)
+    rgb, _ = _images(19, h, w, cuda, b=len(counts))
+    y = colorspace.luma(rgb)
+    s, l = min(h, w), max(h, w)
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    c = torch.arange(n, device=cuda) % l
+    idx = torch.empty((len(counts), n), dtype=torch.int64, device=cuda)
+    for i, k in enumerate(counts):
+        rows = torch.randperm(s, generator=gen, device=cuda)[:k]
+        a = rows[torch.arange(n, device=cuda) % k]
+        idx[i] = a * w + c if h <= w else c * w + a
+    got, _, _ = k5.compact_rows_reference(idx.cpu(), h, w, len(counts))
+    assert got.tolist() == list(counts)
+    whole = k9.highest_read(y, idx)
+    g = k9.gates(whole, y, idx)
+    assert g["within_bound"] and g["within_f64"] and g["finite"], g
+    for i in range(len(counts)):
+        alone = k9.highest_read(y[i:i + 1].contiguous(),
+                                idx[i:i + 1].contiguous())
+        assert torch.equal(alone[0], whole[i])
+
+
+@pytest.mark.parametrize("h,w,view", [(333, 638, "dense"),
+                                      (638, 333, "dense"),
+                                      (444, 640, "one_float_in"),
+                                      (640, 444, "one_float_in")])
+def test_highest_read_without_tma(cuda, h, w, view):
+    # The pass copies X by TMA only where W % 4 == 0 and the plane starts
+    # 16-byte aligned, else by 4-byte copies into the same layout: W = 638
+    # or 333, or a plane one float into its storage, in both orientations.
+    # Within the gates; the plane one float in reads bit for bit what its
+    # aligned copy (TMA) reads, and an image alone what it reads in the
+    # batch.
+    rgb, _ = _images(20, h, w, cuda, b=3)
+    y = colorspace.luma(rgb)
+    idx = _ranked(h, w, 1000, cuda, b=3)
+    if view == "one_float_in":
+        moved = _one_byte_in(y)  # one 4-byte element in
+        assert moved.is_contiguous() and moved.data_ptr() % 16 != 0
+        got = k9.highest_read(moved, idx)
+        assert torch.equal(got, k9.highest_read(y, idx))
+    else:
+        got = k9.highest_read(y, idx)
+    g = k9.gates(got, y, idx)
+    assert g["within_bound"] and g["within_f64"] and g["finite"], g
+    alone = k9.highest_read(y[1:2].contiguous(), idx[1:2].contiguous())
+    assert torch.equal(alone[0], got[1])
+
+
 _K9_OUT_OF_RANGE = textwrap.dedent("""
     import torch
     from spread_spectrum_watermarking_torch.kernels import highest_read as k9

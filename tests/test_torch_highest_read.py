@@ -6,6 +6,9 @@ dispatch. The kernel itself runs only on a CUDA card:
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold it against these
 plain versions there."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +28,21 @@ from spread_spectrum_watermarking_tpu.ops import dct as jd
 
 GEOMETRIES = [(64, 96), (96, 64), (37, 53)]
 # The first pass's k-step, whose tensor-core sum is added to the f32 total
-# (csrc/dct2d_fused.cu, kListSteps of 8), and the dots' chunk and lanes
-# (csrc/highest_read.cu).
+# (csrc/highest_read.cu, pass_kernel: a wgmma k-step of 8), and the dots'
+# chunk and lanes (dot_kernel there).
 STEP, CHUNK, LANES = 8, 4, 32
+_SOURCE = (Path(__file__).resolve().parent.parent
+           / "spread_spectrum_watermarking_torch" / "csrc" / "highest_read.cu")
+
+
+def _constant(name):
+    """An int constant of the kernel's source (``constexpr int name = v;``)."""
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _SOURCE.read_text()).group(1))
+
+
+# A tile's slots, and its positions: 64 (wgmma's m) per consumer warpgroup.
+SLOTS, COLS = _constant("kSlots"), 64 * _constant("kConsumers")
 
 
 def _inputs(seed, h, w, n, b=3, kind="distinct"):
@@ -61,13 +76,16 @@ def _jax_read(x, idx):
 
 
 def _emulate(y, idx, fault=None):
-    """The kernel's order of operations in plain torch. The compaction
+    """The kernel's order of operations in plain torch
+    (``csrc/highest_read.cu``). The compaction
     (``read_tail.compact_rows_reference``): each image's distinct rows
-    along S, a slot per index. The first pass at the listed rows only, as
-    K6a's 3xTF32: both operands split (``split_tf32``); for each k-step of
-    8, the products lo_b hi_y, hi_b lo_y, hi_b hi_y summed from zero
-    (exact products, f32 sums), the step's sum then added to the f32
-    total; D a row per slot. The dot of each
+    along S, a slot per index. The first pass (``pass_kernel``) at the
+    listed rows only, as K6a's 3xTF32 (``csrc/tf32x3.cuh``): both operands
+    split (``split_tf32``); for each k-step of 8, the products lo_b hi_y,
+    hi_b lo_y, hi_b hi_y summed from zero (exact products, f32 sums), the
+    step's sum then added to the f32 total; D a row per slot. Its tiles,
+    walk and overlap (:func:`_slot_tiles`) change which block computes an
+    output and when, not how. The dot of each
     index with its slot's row: lane q of 32 over the chunks of 4 columns
     l = 4 (q + 32 k) + e, one f32 FMA chain per e with k ascending, then
     (s0 + s1) + (s2 + s3), the lanes added as the xor shuffles 16, 8, 4,
@@ -196,6 +214,138 @@ def test_kernel_order_does_not_depend_on_the_row_counts(h, w):
         assert torch.equal(alone[0], batch[i])
     g = k9.gates(batch, y, idx)
     assert g["within_bound"] and g["within_f64"] and g["finite"]
+
+
+def _slot_tiles(counts, cap, l, sms):
+    """The first pass's walk (``SlotTiles`` and ``launch_pass`` in
+    ``csrc/highest_read.cu``) as each block takes it: image by image, of
+    each its column tiles of COLS positions, of each the slot tiles of SLOTS
+    below the image's count, slot fastest; the grid (at most one block per
+    SM, at most the tiles every image at its cap would have) deals them
+    out in turn, each block keeping a cursor that only moves forward.
+    Returns each block's (image, column tile, slot tile) in its order."""
+    col_tiles = -(-l // COLS)
+    grid = min(sms, len(counts) * -(-cap // SLOTS) * col_tiles)
+    blocks = []
+    for b in range(grid):
+        image, first, live, got = 0, 0, -1, []
+        tile = b
+        while True:
+            found = None
+            while image < len(counts):
+                if live < 0:
+                    live = -(-counts[image] // SLOTS)
+                if tile < first + live * col_tiles:
+                    local = tile - first
+                    found = (image, local // live, local % live)
+                    break
+                first += live * col_tiles
+                image += 1
+                live = -1
+            if found is None:
+                break
+            got.append(found)
+            tile += grid
+        blocks.append(got)
+    return blocks
+
+
+EDGE_COUNTS = [1, 63, 64, 65, 128, 129]
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("h,w", [(1080, 1920), (1920, 1080), (64, 96),
+                                 (96, 64)])
+def test_walk_covers_every_live_tile_once(h, w, sms):
+    # Counts at the slot tiles' edges and at the cap (min(n, S), n = 1000),
+    # in both orientations: every live (image, column tile, slot tile) is
+    # taken by exactly one block, none past an image's count, every slot
+    # below the count and every position below L lies in a taken tile, and
+    # an image computes fewer than SLOTS rows past its count.
+    s, l = min(h, w), max(h, w)
+    cap = min(1000, s)
+    counts = [c for c in EDGE_COUNTS if c <= cap] + [cap]
+    blocks = _slot_tiles(counts, cap, l, sms)
+    taken = [t for got in blocks for t in got]
+    assert len(taken) == len(set(taken))
+    col_tiles = -(-l // COLS)
+    live = {(i, c, k) for i, n in enumerate(counts) for c in range(col_tiles)
+            for k in range(-(-n // SLOTS))}
+    assert set(taken) == live
+    for i, n in enumerate(counts):
+        rows = {k * SLOTS + r for (j, _, k) in taken if j == i
+                for r in range(SLOTS)}
+        assert set(range(n)) <= rows and len(rows) - n < SLOTS
+        assert all(k * SLOTS < n for (j, _, k) in taken if j == i)
+    assert col_tiles * COLS >= l > (col_tiles - 1) * COLS
+    # A block's tiles come in the walk's order (image, column tile, slot
+    # tile), so its cursor only moves forward; a block finds no tile only
+    # where fewer tiles are live than blocks were launched.
+    rank = {t: i for i, t in enumerate(sorted(live))}
+    for got in blocks:
+        assert [rank[t] for t in got] == sorted(rank[t] for t in got)
+    assert sum(not got for got in blocks) == max(0, len(blocks) - len(live))
+
+
+def test_walk_with_one_row_an_image_is_one_slot_tile_each():
+    # Textures need about 57 rows an image: one slot tile each, where the
+    # 128-slot tiles of K6a's form computed 128 rows.
+    blocks = _slot_tiles([57] * 48, 1000, 1920, 132)
+    taken = [t for got in blocks for t in got]
+    assert len(taken) == 48 * -(-1920 // COLS)
+    assert {k for (_, _, k) in taken} == {0}
+
+
+def test_tile_shape_matches_the_source():
+    # 64 slots (wgmma's n of m64n64k8) by three consumer warpgroups of 64
+    # positions: the numbers the walk model and the design note use.
+    assert (SLOTS, COLS) == (64, 192)
+    text = _SOURCE.read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in (
+        _SOURCE.parent / "tf32x3.cuh").read_text()
+    assert "wgmma_n64(p, al[q], dh + 2 * q, 0);" in text
+
+
+def _chunk_of(p, rho):
+    """``chunk_of`` of ``csrc/highest_read.cu``: the 16-byte chunk of its
+    32-position box that fragment row rho of warp p (of the pair sharing
+    the box) stands for in landscape."""
+    return 4 * ((rho // 4) % 2) + rho // 8 + 2 * p
+
+
+def _sw128(r, k):
+    """``sw128`` of ``csrc/tf32x3.cuh``: element (r, k) of a tile of
+    128-byte rows in wgmma's 128-byte swizzle, in floats."""
+    return r * 32 + ((((k >> 2) ^ r) & 7) << 2) + (k & 3)
+
+
+def test_fragment_positions_and_banks():
+    # In landscape the pair of warps sharing a box gives its 32 fragment
+    # rows the box's 32 positions once each, and each of a warp's four
+    # fragment loads (rows g, g + 8 at k-rows t, t + 4 of k-step q) hits
+    # 32 different banks; in portrait (rows = positions, 32 k each) too.
+    text = _SOURCE.read_text()
+    assert "return 4 * ((rho / 4) % 2) + rho / 8 + 2 * p;" in text
+    assert "return r * kRowFloats + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);" \
+        in (_SOURCE.parent / "tf32x3.cuh").read_text()
+    pos = sorted(4 * _chunk_of(p, rho) + rho % 4 for p in (0, 1)
+                 for rho in range(16))
+    assert pos == list(range(32))
+    for land in (True, False):
+        for warp in range(4):
+            for q in range(4):
+                for e in range(4):
+                    banks = set()
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        rho, k = g + 8 * (e % 2), 8 * q + t + 4 * (e // 2)
+                        if land:
+                            at = 1024 * (warp // 2) + _sw128(
+                                k, 4 * _chunk_of(warp % 2, rho) + rho % 4)
+                        else:
+                            at = _sw128(16 * warp + rho, k)
+                        banks.add(at % 32)
+                    assert len(banks) == 32, (land, warp, q, e)
 
 
 @pytest.mark.parametrize("case", ["distinct", "rows", "shared", "all"])
