@@ -55,6 +55,23 @@ Phases, one line of output each, any failure exits non-zero:
    its peak memory beside the plain version's (never above it), and its
    bound from the distinct rows of the run's indices and its share of it,
    the first pass's share of its own bound beside it;
+3e. K10 (HIGHEST's sparse inverse: the compaction, a stable sort of the
+   indices by slot, M over each image's distinct rows, G (the shorter
+   side's basis at those rows), the 3xTF32 product with K7's rounding in
+   its u8 epilogue) against its plain version (the
+   f32 cuBLAS product, then K7's plain rounding) through
+   ``highest_inverse.gates``: dY within ``k10_bound``, an f64 error at most
+   the plain version's plus one pass's split term and, at 48 x 1080p and
+   8 x 4K in landscape and portrait on 1/f textures and on random u8 (the
+   base's n = 1000 ranked indices, the updates of n = 1000 marks), no
+   larger than the plain route's; the u8 output K7's rounding of its own
+   dY and within one step of the plain u8; both modes bit-identical on a
+   second call; at 444 x 640, 640 x 444 and 37 x 59 at n = 1, 1000 and
+   20,000; its time at 48 x 1080p and 8 x 4K on both contents in both
+   modes beside its plain version's, the old route's (the product, then
+   K7) and the f32 ``torch.matmul`` product's, its device launches (at
+   most 5) and each one's device time, its peak memory beside the old
+   route's, and its bound from the distinct rows of the run's indices;
 4. K6a/K6b (the 2-D DCT and its inverse, f32, 3xTF32 on the tensor cores)
    against their plain versions at 444x640, 640x444, 37x59, 48x1080x1920,
    1920x1080 and 2x2160x3840; K6a's top-1000 ranking against the plain
@@ -119,14 +136,17 @@ Phases, one line of output each, any failure exits non-zero:
    DEFAULT and HIGH read back by the fast Reader, float input at DEFAULT,
    ``prepare_base`` at HIGH;
 8. the HIGHEST path (every config's default) at 1080p batch 48:
-   ``embed_verified`` with K6a's, K7's, K3's f32-mode, K8's and K9's
-   launch counts from that call (K8 twice, K6a, K7 and K9 exactly once,
-   K3's key mode never, no call of the plain read ``dct2_coeffs_at``) and
-   its peak memory, detection, the sigmas within 0.01 of the plain
-   route's read (the table's lumas, ``dct2_coeffs_at``),
+   ``embed_verified`` with K6a's, K10's, K3's f32-mode, K8's and K9's
+   launch counts from that call (K8 twice, K6a, K10 and K9 exactly once,
+   K7 and K3's key mode never, no call of the plain read
+   ``dct2_coeffs_at`` or of the f32 cuBLAS sparse product) and its peak
+   memory, ``embed`` alone (K10 once, K7 never, bit-equal), detection,
+   the sigmas within 0.01 of the plain route's read (the table's lumas,
+   ``dct2_coeffs_at``),
    ``extract`` bit-equal to its extraction and ``extract_prepared`` within
    0.01 sigma of it, ``embed(sparse_idct=False)`` with K6b's launch count,
-   the CPU agreement check, Writer/Reader/Tester on one image, a stage
+   the CPU agreement check, Writer/Reader/Tester on one image
+   (``Writer.mark``: K10 once, K7 never), a stage
    breakdown, images/s on the textures (chained as the harness chains
    calls) and from the harness (random u8), and the idle share;
 9. 4K, batch 8: one ``embed_verified`` on 1/f textures at DEFAULT and one
@@ -138,42 +158,41 @@ Phases, one line of output each, any failure exits non-zero:
    image's own mark its top match, above 6 sigma);
 11. the command line (``cli.main``, in this process) at 1080p: ``batch``
    over 48 1/f textures saved as JPEG q 95, at HIGHEST (the CLI's default;
-   K6a launched, K7 once for the one shape) and at DEFAULT (K1 and K4),
-   48 PNG/JSON pairs each; ``test`` on four outputs of each tier (its own
-   mark matches, a foreign one does not); ``detect`` at each tier on one
-   base and 50 derived paths of its shape (its marked PNG and a JPEG q 90
-   re-encode above 6 sigma, the base itself 0.0, the other 47 outputs
-   below 6 sigma), its records equal to a run in chunks of one within
-   1e-5 sigma; and one ``python -m spread_spectrum_watermarking_torch.cli
+   K6a launched, K10 once for the one shape, K7 never) and at DEFAULT (K1
+   and K4), 48 PNG/JSON pairs each; ``test`` on four outputs of each tier
+   (its own mark matches, a foreign one does not); ``detect`` at each tier
+   on one base and 50 derived paths of its shape (its marked PNG and a JPEG
+   q 90 re-encode above 6 sigma, the base itself 0.0, the other 47 outputs
+   below 6 sigma), its records equal to a run in chunks of one within 1e-5
+   sigma; and one ``python -m spread_spectrum_watermarking_torch.cli
    watermark -p`` subprocess that must exceed 6 sigma. It prints the wall
    images/s of ``batch`` and ``detect`` (decode and encode included:
-   recorded, not gated) beside the card's name and power limit, each
-   host and device piece of them timed alone (``cli_breakdown``), and a
+   recorded, not gated) beside the card's name and power limit, each host
+   and device piece of them timed alone (``cli_breakdown``), and a
    ``native`` line: the native RNG's build, bit-equal to its pure-Python
    version at seed 1, length 1000, and the codec's build or why it was
    skipped (this host's decoder is then PIL);
 12. ``parallel/`` (``parallel_*`` lines): NCCL with one rank per card, a
-   group of one in this process: DP ``embed``/``extract`` at 48 x 1080p
-   at DEFAULT and HIGHEST bit-equal to the single-device call (K1, K5 and
-   K4, or K6a and K7, launched), ``embed_spatial``/``extract_spatial`` of one
-   4K image at HIGHEST within one u8 step of the single-device embed on
-   under 2% of values and above 6 sigma, the corpus-sharded bench at its
-   defaults (32 4K images, chunks of 8, HIGHEST; own marks above 6
-   sigma, others below; K7 launched) and one of its chunks timed by
-   parts; then gloo ranks that all compute on this card (NCCL refuses two
-   ranks on one card), spawned with ``parallel.launch.run_ranks``: DP
-   (4, 1) at 1080p bit-equal at DEFAULT and HIGHEST, spatial (1, 4) at
-   1080p and at 1081 x 1918, the corpus (2, 2) at height 1083 (padding
-   rows zero, within one step on under 10%, 99% of values within 5e-2
-   of the single-device read), the staged embed on 3 ranks bit-equal at
-   DEFAULT and HIGH (HIGHEST refused), and ``dryrun_multichip(4,
-   "cuda")``; every rank's kernel launches are recorded and K1, K4, K6a,
-   K7 and K3's plane and f32 modes must have launched inside the DP
-   ranks, K3's key mode in the spatial and
-   corpus ranks (and the NCCL paths), and in the staged embed each run's
-   own counts must show K1's single mode (DEFAULT) or its high mode (HIGH)
-   on stage 0 and not the other, K3's plane mode on stage 1, K4 on
-   stage 2.
+   group of one in this process: DP ``embed``/``extract`` at 48 x 1080p at
+   DEFAULT and HIGHEST bit-equal to the single-device call (K1, K5 and K4,
+   or K6a and K10, launched; K7 not), ``embed_spatial``/``extract_spatial``
+   of one 4K image at HIGHEST within one u8 step of the single-device embed
+   on under 2% of values and above 6 sigma, the corpus-sharded bench at its
+   defaults (32 4K images, chunks of 8, HIGHEST; own marks above 6 sigma,
+   others below; K7 launched) and one of its chunks timed by parts; then
+   gloo ranks that all compute on this card (NCCL refuses two ranks on one
+   card), spawned with ``parallel.launch.run_ranks``: DP (4, 1) at 1080p
+   bit-equal at DEFAULT and HIGHEST, spatial (1, 4) at 1080p and at 1081 x
+   1918, the corpus (2, 2) at height 1083 (padding rows zero, within one
+   step on under 10%, 99% of values within 5e-2 of the single-device read),
+   the staged embed on 3 ranks bit-equal at DEFAULT and HIGH (HIGHEST
+   refused), and ``dryrun_multichip(4, "cuda")``; every rank's kernel
+   launches are recorded and K1, K4, K6a, K10 and K3's plane and f32 modes
+   (and not K7) must have launched inside the DP ranks, K7 in the corpus
+   ranks (its write-back), K3's key mode in the spatial and corpus ranks
+   (and the NCCL paths), and in the staged embed each run's own counts must
+   show K1's single mode (DEFAULT) or its high mode (HIGH) on stage 0 and
+   not the other, K3's plane mode on stage 1, K4 on stage 2.
 
 The device line also reports, for information only, which of PIL, the
 libjpeg and libpng headers, ``Python.h`` and ``g++`` the machine has (the
@@ -188,6 +207,7 @@ function; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -245,10 +265,11 @@ def pink_texture(rng, h: int, w: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=8)
 def _texture_batch(seed: int, b: int, h: int, w: int) -> np.ndarray:
     """(b, h, w, 3) u8 textures, kept so that phases on the same seed (each
-    fast tier at both rank generations) make them once."""
+    fast tier at both rank generations; K9's and K10's phases) make them
+    once."""
     rng = np.random.default_rng(seed)
     return np.stack([pink_texture(rng, h, w) for _ in range(b)])
 
@@ -1577,6 +1598,171 @@ def phase_k9() -> dict:
             "bound_by": rec["bound_by"]}
 
 
+def k10_inputs(content: str, seed: int, b: int, h: int, w: int):
+    """(rgb, delta, idx) as the HIGHEST embed hands them to K10: ``rgb``
+    the 1/f textures of ``seed`` or the harness's random u8
+    (``bench._inputs`` from numpy's generator of ``seed``), ``idx`` its n =
+    1000 ranked indices from ``prepare_base``, ``delta`` the updates of
+    n = 1000 marks there at the default insertion."""
+    import torch
+
+    import spread_spectrum_watermarking_torch as wm
+    from spread_spectrum_watermarking_torch import bench
+    from spread_spectrum_watermarking_torch.ops import modulation
+
+    if content == "random_u8":
+        base, marks = bench._inputs(np.random.default_rng(seed), b, h, w, N,
+                                    torch.device("cuda"))
+    else:
+        base = textures(seed, b, h, w)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        marks = torch.randn((b, 1, N), generator=gen, device="cuda")
+    flat, idx = wm.prepare_base(base, N)
+    orig = torch.gather(flat, -1, idx)
+    del flat
+    ins = wm.WriteConfig().insertion
+    delta = modulation.embed_marks(orig, marks, ins.method, ins.alpha) - orig
+    return base, delta, idx
+
+
+def _compare_k10(case: str, rgb, delta, idx, strict: bool) -> float:
+    """K10's two modes on ``(rgb, delta, idx)`` through
+    ``highest_inverse.gates`` (dY within ``k10_bound``, an f64 error at
+    most the plain version's plus one pass's split term and, where
+    ``strict``, no larger than the plain route's; the u8 output K7's
+    rounding of its own dY and within one step of the plain u8), and a
+    second call of each bit-identical; logs the readings, raises outside a
+    gate, returns max |err| of dY."""
+    import torch
+
+    from spread_spectrum_watermarking_torch.kernels import highest_inverse as k10
+
+    h, w = rgb.shape[1:3]
+    dy = k10.sparse_delta(delta, idx, h, w)
+    out = k10.highest_inverse(rgb, delta, idx)
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(dy, k10.sparse_delta(delta, idx, h, w))
+                  and torch.equal(out, k10.highest_inverse(rgb, delta, idx)))
+    g = k10.gates(dy, delta, idx, rgb, out)
+    log("k10", case=case, shape=list(rgb.shape), n=idx.shape[-1],
+        repeat_bit_equal=repeat, **g)
+    if not (g["within_bound"] and g["within_f64"] and g["finite"]
+            and g["u8_bit_equal_own_dy"] and g["max_u8_step_from_plain"] <= 1
+            and repeat and (g["no_worse_than_plain"] or not strict)):
+        raise AssertionError(f"K10 {case} {tuple(rgb.shape)}: outside its "
+                             "gates")
+    return g["max_abs_err"]
+
+
+def k10_bound_ms(rgb, idx) -> dict:
+    """K10's bound on ``(rgb, idx)`` (``distinct_rows``, ``bound_ms``,
+    ``bound_by``): the product's 2 S L multiply-adds per distinct (image,
+    coordinate along S), three TF32 products each, and M's 2 L per index
+    in f32; the u8 image in and out once, the updates and indices, the
+    bases (D_S's two TF32 parts, D_L)."""
+    b, h, w = rgb.shape[:3]
+    n = idx.shape[-1]
+    s, l = min(h, w), max(h, w)
+    a = (idx // w if h <= w else idx % w).expand(b, n).sort(-1).values
+    rows = b + int((a.diff(dim=-1) != 0).sum())
+    ops_ms = (3 * 2 * rows * s * l / TF32_PEAK
+              + 2 * b * n * l / F32_PEAK) * 1e3
+    bytes_ms = (2 * rgb.numel() + 12 * b * n + 4 * (2 * s * s + l * l)) \
+        / HBM_RATE * 1e3
+    return {"distinct_rows": rows, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _k10_timing(rgb, delta, idx) -> dict:
+    """K10 on one input: its ms in u8 mode and in dY mode, its plain
+    version's (the f32 cuBLAS product, then K7's plain rounding), the
+    route the card ran before it (the factors, the product, then K7) and
+    the library's (one f32 ``torch.matmul`` of prebuilt factors, TF32 off:
+    the product alone), its device launches a call and each kernel's device
+    ms, the peak memory of a call and of the old route's, and the bound
+    from the distinct rows."""
+    from spread_spectrum_watermarking_torch.kernels import highest_inverse as k10
+    from spread_spectrum_watermarking_torch.kernels.add_quantize import (
+        add_quantize)
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    h, w = rgb.shape[1:3]
+
+    def old_route():
+        return add_quantize(rgb, k10.sparse_delta_reference(delta, idx, h, w),
+                            True)
+
+    a, b = dct.sparse_factors_f32(delta, idx, h, w)
+    rec = {"ms": time_ms(lambda: k10.highest_inverse(rgb, delta, idx), 5),
+           "dy_mode_ms": time_ms(lambda: k10.sparse_delta(delta, idx, h, w),
+                                 5),
+           "plain_ms": time_ms(
+               lambda: k10.highest_inverse_reference(rgb, delta, idx), 3),
+           "old_route_ms": time_ms(old_route, 5),
+           "library_ms": time_ms(
+               lambda: dct.matmul_f32(a.transpose(-1, -2), b), 5)}
+    del a, b
+    rec.update(**_k5_device(lambda: k10.highest_inverse(rgb, delta, idx)),
+               peak_mb=peak_mb(lambda: k10.highest_inverse(rgb, delta, idx)),
+               old_route_peak_mb=peak_mb(old_route), **k10_bound_ms(rgb, idx))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+#: K10's design, as the k10_time lines name it (csrc/highest_inverse.cu).
+K10_DESIGN = ("compaction; a stable sort of the indices by slot; M, f32 "
+              "sums over each slot's indices; G, D_S at the listed rows; "
+              "3xTF32 wgmma.m64n64k8 over each image's slots on 64 x 192 "
+              "tiles walked persistently, one TMA producer thread, each "
+              "k-step's f32 add overlapped; the u8 epilogue with K7's "
+              "rounding in 16-, 8- or 4-byte vectors")
+
+
+def phase_k10() -> dict:
+    """K10 (HIGHEST's sparse inverse) through ``highest_inverse.gates`` and
+    an f64 error no larger than the plain route's, both modes bit-identical
+    on a second call: at 48 x 1080p and 8 x 4K, in landscape and portrait,
+    on 1/f textures and on the harness's random u8, at the base's n = 1000
+    ranked indices with the updates of n = 1000 marks; at 444 x 640, 640 x
+    444 and 37 x 59 at n = 1, 1000 and 20,000 (random indices with
+    repeats; the f64 comparison with the plain route is not required
+    there); then its time (``_k10_timing``) at 48 x 1080p and 8 x 4K on
+    both contents: the record of ``highest_inverse``, from the 48 x 1080p
+    random u8, the harness's rate inputs."""
+    import torch
+
+    worst, times = 0.0, {}
+    for content in ("textures", "random_u8"):
+        for b, h, w in ((48, 1080, 1920), (48, 1920, 1080),
+                        (8, 2160, 3840), (8, 3840, 2160)):
+            # K9's seeds: the same textures, made once (_texture_batch).
+            rgb, delta, idx = k10_inputs(content, 90 + b + (h > w), b, h, w)
+            worst = max(worst, _compare_k10(content, rgb, delta, idx, True))
+            if h <= w:
+                rec = _k10_timing(rgb, delta, idx)
+                times[content, b] = rec
+                log("k10_time", content=content, shape=[b, h, w], n=N,
+                    card=_card(), design=K10_DESIGN, **rec)
+                if rec["device_launches_per_call"] > 5:
+                    raise AssertionError("K10 makes more than 5 device "
+                                         "launches")
+            del rgb, delta, idx
+            torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(105)
+    for h, w in ((444, 640), (640, 444), (37, 59)):
+        rgb = textures(97 + h, 2, h, w)
+        for n in (1, 1000, 20000):
+            idx = torch.randint(0, h * w, (2, n), generator=gen,
+                                device="cuda")
+            delta = torch.randn((2, n), generator=gen, device="cuda") * 20.0
+            worst = max(worst, _compare_k10("random_idx", rgb, delta, idx,
+                                            False))
+    rec = times["random_u8", 48]
+    return {"max_abs_err": worst, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "library_ms": rec["library_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"]}
+
+
 def _check_detection(tag: str, ext, marks, gen) -> dict:
     import torch
 
@@ -1756,6 +1942,22 @@ def _zero_kernel_counts() -> None:
     kernels.reset_launch_counts()
 
 
+@contextlib.contextmanager
+def _sparse_products():
+    """Counts, while the block runs, the calls of
+    ``ops.dct.sparse_factors_f32``, which makes the factors of the f32
+    cuBLAS sparse product (the route K10 replaced on HIGHEST paths): a
+    list with one entry a call."""
+    from spread_spectrum_watermarking_torch.ops import dct
+
+    calls, real = [], dct.sparse_factors_f32
+    dct.sparse_factors_f32 = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        yield calls
+    finally:
+        dct.sparse_factors_f32 = real
+
+
 def phase_fast_path(precision, recs: dict | None, rank_version: int = 2,
                     iters: int = 64) -> None:
     """One fast tier's path at 1080p batch 48 and rank generation
@@ -1921,8 +2123,8 @@ def phase_custom() -> None:
     """The custom callables on 4 x 1080p at each tier, each reimplementing
     a built-in and held to it, with the launch counts of each call: the
     fast tiers' embed runs K1 and K4 (K1's high mode at HIGH) and their
-    read K1 and K5; HIGHEST's embed K6a and K7 once, its read
-    K6a; every call K3."""
+    read K1 and K5; HIGHEST's embed K6a and K10 once, K7 and the f32
+    cuBLAS sparse product never, its read K6a; every call K3."""
     import torch
 
     import spread_spectrum_watermarking_torch as wm
@@ -1937,15 +2139,17 @@ def phase_custom() -> None:
 
     def counted(fn):
         _zero_kernel_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, _kernel_counts()
+        with _sparse_products() as products:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, {**_kernel_counts(), "sparse_products": len(products)}
 
     def launched(counts, fast: bool, write: bool, high: bool) -> bool:
         if counts["k3"] + counts["k3_plane"] + counts["k3_coeffs"] < 1:
             return False
         if not fast:
-            return counts["k6a"] > 0 and (counts["k7"] == 1 or not write)
+            return counts["k6a"] > 0 and counts["sparse_products"] == 0 and (
+                (counts["k10"] == 1 and counts["k7"] == 0) or not write)
         first = (counts["k1_high"] if high
                  else counts["k1"] - counts["k1_pair"])
         return first > 0 and (counts["k4"] > 0 if write
@@ -2024,16 +2228,38 @@ def phase_bench() -> None:
         raise AssertionError(f"the corpus bench missed marks: {res}")
 
 
-def _stage_breakdown_highest(rgb, marks, cfg, read=None) -> dict:
-    """ms per stage of one HIGHEST embed_verified call (its sparse embed,
-    then its read: K8's two lumas, K9's read, or ``read(y, idx)`` in its
-    place), CUDA events around each, the median of ``STAGE_ROUNDS``
-    rounds, and their sum."""
-    import torch
+def _k10_stage(run, rgb, delta, idx):
+    """HIGHEST's sparse inverse as one stage: K10 in its u8 mode."""
+    from spread_spectrum_watermarking_torch.kernels.highest_inverse import (
+        highest_inverse)
 
+    return run("k10_inverse", lambda: highest_inverse(rgb, delta, idx))
+
+
+def _product_k7_stages(run, rgb, delta, idx):
+    """HIGHEST's sparse inverse as a checkout without K10 runs it: the dY
+    plane of ``pipeline._sparse_idct_delta`` (the f32 cuBLAS product
+    there), then K7's u8 mode."""
+    from spread_spectrum_watermarking_torch import Precision
     from spread_spectrum_watermarking_torch.kernels.add_quantize import (
         add_quantize)
     from spread_spectrum_watermarking_torch.models import pipeline as tp
+
+    h, w = rgb.shape[1:3]
+    dy = run("sparse_delta", lambda: tp._sparse_idct_delta(
+        delta, idx, h, w, Precision.HIGHEST))
+    return run("k7_add_quantize", lambda: add_quantize(rgb, dy, True))
+
+
+def _stage_breakdown_highest(rgb, marks, cfg, read=None,
+                             inverse=_k10_stage) -> dict:
+    """ms per stage of one HIGHEST embed_verified call (its sparse embed,
+    with ``inverse(run, rgb, delta, idx)`` timing its inverse's stages, by
+    default K10's; then its read: K8's two lumas, K9's read, or ``read(y,
+    idx)`` in its place), CUDA events around each, the median of
+    ``STAGE_ROUNDS`` rounds, and their sum."""
+    import torch
+
     from spread_spectrum_watermarking_torch.ops import (colorspace, dct,
                                                         modulation, ranking)
 
@@ -2056,10 +2282,7 @@ def _stage_breakdown_highest(rgb, marks, cfg, read=None) -> dict:
         box["new"] = run("modulate", lambda: modulation.embed_marks(
             box["orig"], marks[None].expand(b, *marks.shape), ie.method,
             ie.alpha))
-        box["dy"] = run("sparse_delta", lambda: tp._sparse_idct_delta(
-            box["new"] - box["orig"], idx, h, w, cfg.precision))
-        box["m"] = run("k7_add_quantize",
-                       lambda: add_quantize(rgb, box["dy"], True))
+        box["m"] = inverse(run, rgb, box["new"] - box["orig"], idx)
         yd = run("k8_derived_luma", lambda: colorspace.luma(box["m"]))
         run("k9_read", lambda: read(yd, idx))
     out = _median_stages(stages)
@@ -2068,7 +2291,8 @@ def _stage_breakdown_highest(rgb, marks, cfg, read=None) -> dict:
 
 
 def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
-                  k3c_rec: dict, k8_rec: dict, k9_rec: dict) -> None:
+                  k3c_rec: dict, k8_rec: dict, k9_rec: dict,
+                  k10_rec: dict) -> None:
     import torch
 
     import spread_spectrum_watermarking_torch as wm
@@ -2084,16 +2308,18 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
     marks = torch.randn((48, 1, N), generator=gen, device="cuda")
     torch.cuda.synchronize()
 
-    # The call counts its kernels and any call of the plain read
-    # (dct.dct2_coeffs_at: the f32 cuBLAS pass over the whole plane).
+    # The call counts its kernels, any call of the plain read
+    # (dct.dct2_coeffs_at: the f32 cuBLAS pass over the whole plane) and
+    # any of the f32 cuBLAS sparse product (_sparse_products).
     plain_reads, out = [], {}
     coeffs_at = dct.dct2_coeffs_at
     dct.dct2_coeffs_at = lambda *a, **k: plain_reads.append(1) or coeffs_at(
         *a, **k)
     try:
         _zero_kernel_counts()
-        call_mb = peak_mb(lambda: out.update(
-            zip(("marked", "ext"), wm.embed_verified(rgb, marks, cfg))))
+        with _sparse_products() as products:
+            call_mb = peak_mb(lambda: out.update(
+                zip(("marked", "ext"), wm.embed_verified(rgb, marks, cfg))))
         counts = _kernel_counts()
     finally:
         dct.dct2_coeffs_at = coeffs_at
@@ -2103,11 +2329,14 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
     k3c_rec["launches"] = counts["k3_coeffs"]
     k8_rec["launches"] = counts["k8"]
     k9_rec["launches"] = counts["k9"]
-    if (counts["k6a"] != 1 or counts["k7"] != 1 or counts["k3_coeffs"] == 0
-            or counts["k3"] != 0 or counts["k8"] != 2 or counts["k9"] != 1
-            or plain_reads):
+    k10_rec["launches"] = counts["k10"]
+    if (counts["k6a"] != 1 or counts["k10"] != 1 or counts["k7"] != 0
+            or counts["k3_coeffs"] == 0 or counts["k3"] != 0
+            or counts["k8"] != 2 or counts["k9"] != 1 or plain_reads
+            or products):
         raise AssertionError(f"the HIGHEST path launched {counts}, "
-                             f"{len(plain_reads)} plain reads")
+                             f"{len(plain_reads)} plain reads, "
+                             f"{len(products)} f32 sparse products")
     det = _check_detection("1080p HIGHEST", ext, marks, gen)
     # The plain route's read (the table's lumas, dct2_coeffs_at) of the
     # same marked images at the same indices: the sigmas within 0.01.
@@ -2137,10 +2366,27 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
     if not gap <= 0.01:
         raise AssertionError(f"extract_prepared is {gap} sigma off")
     log("highest_path", shape=[48, 1080, 1920], n=N, launches=counts,
-        plain_reads=len(plain_reads), peak_mb=call_mb,
+        plain_reads=len(plain_reads), sparse_products=len(products),
+        peak_mb=call_mb,
         plain_route_max_gap_sigma=plain_gap,
         extract_bit_equal=True, prepared_max_gap_sigma=gap,
         share_pixels_changed=float((marked != rgb).float().mean()), **det)
+
+    # embed alone: the same marked images, K10 once, K7 and the f32 sparse
+    # product never.
+    _zero_kernel_counts()
+    with _sparse_products() as products:
+        alone = wm.embed(rgb, marks, cfg)
+        torch.cuda.synchronize()
+    counts = _kernel_counts()
+    log("highest_embed", shape=[48, 1080, 1920], n=N, launches=counts,
+        sparse_products=len(products),
+        bit_equal_to_embed_verified=bool(torch.equal(alone, marked)))
+    if (counts["k10"] != 1 or counts["k7"] != 0 or products
+            or not torch.equal(alone, marked)):
+        raise AssertionError(f"HIGHEST embed launched {counts}, "
+                             f"{len(products)} f32 sparse products")
+    del alone
 
     # The reference's full inverse: K6b.
     k6.FORWARD_LAUNCHES = k6.INVERSE_LAUNCHES = 0
@@ -2182,7 +2428,13 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
     # The object API on one image, on the card.
     img = rgb[0].cpu().numpy()
     mark = marks[0, 0].cpu().numpy()
-    out = wm.Writer(img, device="cuda").mark(mark)
+    _zero_kernel_counts()
+    with _sparse_products() as products:
+        out = wm.Writer(img, device="cuda").mark(mark)
+    counts = _kernel_counts()
+    if counts["k10"] != 1 or counts["k7"] != 0 or products:
+        raise AssertionError(f"Writer.mark launched {counts}, "
+                             f"{len(products)} f32 sparse products")
     got = wm.Reader.base(img, device="cuda").extract(
         wm.Reader.derived(out, device="cuda"), N)
     sim = wm.Tester(got, device="cuda").similarity(mark)
@@ -2190,7 +2442,7 @@ def phase_highest(k6a_rec: dict, k6b_rec: dict, k7_rec: dict,
     if not (sim.exceeds_sigma(SIGMA) and step <= 1):
         raise AssertionError("Writer/Reader/Tester on the card disagree")
     log("highest_api", shape=list(img.shape), n=N, similarity=sim.similarity,
-        max_u8_step_from_batch=step)
+        max_u8_step_from_batch=step, mark_launches=counts)
 
     log("highest_stages_ms", shape=[48, 1080, 1920], n=N,
         **_stage_breakdown_highest(rgb, marks[0], cfg))
@@ -2398,17 +2650,19 @@ def phase_cli() -> None:
             outs[tier] = d = tmp / tier
             _zero_kernel_counts()
             t0 = time.perf_counter()
-            rc, said = _cli(["batch", src, "--output-dir", d, "--seed", 9,
-                             "--jsonl", tmp / f"batch_{tier}.jsonl",
-                             "--precision", tier])
-            torch.cuda.synchronize()
+            with _sparse_products() as products:
+                rc, said = _cli(["batch", src, "--output-dir", d, "--seed",
+                                 9, "--jsonl", tmp / f"batch_{tier}.jsonl",
+                                 "--precision", tier])
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _kernel_counts()
             pairs = (len(list(d.glob("*_wm.png"))),
                      len(list(d.glob("*_wm.json"))))
             if rc != 0 or pairs != (48, 48):
                 raise AssertionError(f"batch at {tier}: rc {rc}, {pairs}")
-            launched = (counts["k6a"] > 0 and counts["k7"] == 1
+            launched = (counts["k6a"] > 0 and counts["k10"] == 1
+                        and counts["k7"] == 0 and not products
                         if tier == "highest" else
                         counts["k1"] > 0 and counts["k4"] > 0)
             if not launched:
@@ -2476,6 +2730,12 @@ def _need_launches(tag: str, counts: dict, names) -> None:
     missing = [k for k in names if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{tag}: kernels {missing} not launched: {counts}")
+
+
+def _need_no_launches(tag: str, counts: dict, names) -> None:
+    found = [k for k in names if counts.get(k, 0) != 0]
+    if found:
+        raise AssertionError(f"{tag}: kernels {found} launched: {counts}")
 
 
 def _corpus_breakdown(mesh) -> dict:
@@ -2553,14 +2813,15 @@ def _parallel_nccl() -> dict:
             torch.from_numpy(marks).cuda()
         for p, names in ((wm.Precision.DEFAULT, ("k1", "k5", "k4",
                                                   "k3_plane")),
-                         (wm.Precision.HIGHEST, ("k6a", "k7", "k3_coeffs"))):
+                         (wm.Precision.HIGHEST, ("k6a", "k10", "k3_coeffs"))):
             cfg, rcfg = wm.WriteConfig(precision=p), wm.ReadConfig(precision=p)
             _zero_kernel_counts()
             t0 = time.perf_counter()
-            marked = ps.embed_batch_sharded(rgb, marks, mesh, cfg)
-            ext = ps.extract_batch_sharded(rgb, pmesh.Local(marked), N, mesh,
-                                           rcfg)
-            torch.cuda.synchronize()
+            with _sparse_products() as products:
+                marked = ps.embed_batch_sharded(rgb, marks, mesh, cfg)
+                ext = ps.extract_batch_sharded(rgb, pmesh.Local(marked), N,
+                                               mesh, rcfg)
+                torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = _kernel_counts()
             want = pipeline.embed(rgb_dev, marks_dev, cfg)
@@ -2575,6 +2836,10 @@ def _parallel_nccl() -> dict:
             if not all(equal) or own <= SIGMA:
                 raise AssertionError(f"NCCL DP {p.value}: {rec}")
             _need_launches(f"NCCL DP {p.value}", counts, names)
+            _need_no_launches(f"NCCL DP {p.value}", counts, ("k7",))
+            if products:
+                raise AssertionError(f"NCCL DP {p.value}: {len(products)} "
+                                     "f32 sparse products")
             out[f"dp_{p.value}"] = counts
             del marked, ext, want, want_ext
         del rgb_dev, marks_dev
@@ -2666,7 +2931,8 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
 
     rgb_dev = torch.from_numpy(dp_rgb).cuda()
     marks_dev = torch.from_numpy(dp_marks).cuda()
-    for prec, names in (("default", ("k1", "k4")), ("highest", ("k6a", "k7"))):
+    for prec, names in (("default", ("k1", "k4")),
+                        ("highest", ("k6a", "k10"))):
         p = wm.Precision(prec)
         want = pipeline.embed(rgb_dev, marks_dev, wm.WriteConfig(precision=p))
         want_ext = pipeline.extract(rgb_dev, want, N,
@@ -2681,7 +2947,8 @@ def _parallel_ranks(backend: str = "gloo") -> dict:
             raise AssertionError(f"{backend} DP {prec} differs from one device")
     for r, counts in enumerate(launches):
         _need_launches(f"{backend} DP rank {r}", counts["dp"],
-                       ("k1", "k4", "k6a", "k7", "k3_plane", "k3_coeffs"))
+                       ("k1", "k4", "k6a", "k10", "k3_plane", "k3_coeffs"))
+        _need_no_launches(f"{backend} DP rank {r}", counts["dp"], ("k7",))
         _need_launches(f"{backend} spatial rank {r}", counts["spatial"],
                        ("k3",))
         _need_launches(f"{backend} corpus rank {r}", counts["corpus"],
@@ -2864,6 +3131,15 @@ def main() -> int:
                           " (dct2_coeffs_at, XLA; no pallas_call)"}
     k9_rec.update(phase_k9())
     torch.cuda.empty_cache()
+    k10_rec = {"name": "highest_inverse", "route": "cuda",
+               "source": "spread_spectrum_watermarking_torch/csrc/"
+                         "highest_inverse.cu",
+               "replaces": "spread_spectrum_watermarking_tpu/models/"
+                           "pipeline.py:41 (_sparse_idct_delta; the add, "
+                           "clip and quantize :433-443; XLA, no "
+                           "pallas_call)"}
+    k10_rec.update(phase_k10())
+    torch.cuda.empty_cache()
     k6_src = "spread_spectrum_watermarking_torch/csrc/dct2d_fused.cu"
     k6_tpu = "spread_spectrum_watermarking_tpu/ops/dct_pallas.py"
     k6a_rec = {"name": "dct2_2d_fused", "route": "cuda", "source": k6_src,
@@ -2918,7 +3194,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_custom()
     torch.cuda.empty_cache()
-    phase_highest(k6a_rec, k6b_rec, k7_rec, k3c_rec, k8_rec, k9_rec)
+    phase_highest(k6a_rec, k6b_rec, k7_rec, k3c_rec, k8_rec, k9_rec, k10_rec)
     torch.cuda.empty_cache()
     phase_4k()
     torch.cuda.empty_cache()
@@ -2936,7 +3212,7 @@ def main() -> int:
                                   (k1_rec, k1p_rec, k1h_rec, k4_rec, k5_rec,
                                    k6a_rec, k6b_rec, k1f_rec, k1fh_rec,
                                    k7_rec, k3_rec, k3p_rec, k3c_rec, k8_rec,
-                                   k9_rec)]}))
+                                   k9_rec, k10_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

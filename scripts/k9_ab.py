@@ -36,7 +36,8 @@ HIGHEST and read at the base's ranked indices:
   ``luma_peak_mb``, ``read_peak_mb`` (the peak memory of a call);
 - ``call_ms`` and ``call_peak_mb``: one HIGHEST ``embed_verified`` call;
 - ``stages``: ``chip_smoke._stage_breakdown_highest`` with the
-  checkout's read, three times (each stage's ms and their sum);
+  checkout's read and sparse inverse (K10, or the f32 product and K7
+  before it), three times (each stage's ms and their sum);
 - ``chain_images_per_sec``: ``bench._timed_chain`` over 16 chained calls,
   the harness's step; on random u8 that is ``bench.run_verified_bench``'s
   rate.
@@ -115,6 +116,12 @@ def main() -> int:
     except ImportError:
         k9, read = None, dct.dct2_coeffs_at
     cs = _smoke()
+    try:  # HIGHEST's sparse inverse: K10 where the checkout has it
+        from spread_spectrum_watermarking_torch.kernels import (  # noqa: F401
+            highest_inverse)
+        inverse = cs._k10_stage
+    except ImportError:
+        inverse = cs._product_k7_stages
     out = {"root": args.root, "card": cs._card(), "has_k9": k9 is not None}
     ok = True
     cfg = wm.WriteConfig()  # HIGHEST, the default
@@ -151,7 +158,8 @@ def main() -> int:
             lambda: wm.embed_verified(rgb, marks, cfg))
         rec["stages"] = [
             {k.replace("k8_", "").replace("k9_", ""): v for k, v in
-             cs._stage_breakdown_highest(rgb, marks[0], cfg, read).items()}
+             cs._stage_breakdown_highest(rgb, marks[0], cfg, read,
+                                         inverse).items()}
             for _ in range(3)]
         secs, _ = bench._timed_chain(
             lambda x: cs._chained_step(x, marks, cfg), rgb.clone(), 16,

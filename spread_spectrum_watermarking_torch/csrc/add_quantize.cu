@@ -9,10 +9,9 @@
 // exactly that, per subpixel:
 //   v = min(max(fma(float(u), f32(1/255), dy), 0), 1)
 //   f32 out: v;  u8 out: floor((v * 255) + 0.5)
-// with the quantize step's product and sum rounded apart, as jitted JAX and
-// the port's colorspace.f32_to_u8 round them. Every f32 operation is an _rn
-// intrinsic: nvcc contracts a*b + c into an FMA by default (-fmad=true),
-// which would silently change the quantize step.
+// with the quantize step's product and sum rounded apart (csrc/u8_round.cuh,
+// shared with K10's u8 epilogue, says why every f32 operation there is an
+// _rn intrinsic).
 //
 // Bound on the H100: at 48x1080x1920 it reads 298.6 MB of u8 and 398.1 MB
 // of dY and writes 298.6 MB of u8 (or 1194 MB of f32), with a few
@@ -32,18 +31,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "u8_round.cuh"
+
 namespace {
 
-constexpr float kInv255 = 0x1.010102p-8f;  // f32(1 / 255)
+using ssw::u8::add_clamped;
+using ssw::u8::quantize;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float add_clamped(uint32_t u, float dy) {
-  return fminf(fmaxf(__fmaf_rn(float(u), kInv255, dy), 0.0f), 1.0f);
-}
-
-__device__ __forceinline__ uint32_t quantize(float v) {
-  return uint32_t(floorf(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f)));
-}
 
 // u8 mode. rgb: npix * 3 u8; dy: npix f32; out: npix * 3 u8. `vec`: rgb
 // 4-byte and dy and out 16-byte aligned, so groups of four pixels are read

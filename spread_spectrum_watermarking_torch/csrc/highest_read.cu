@@ -85,17 +85,21 @@
 // largest store is D, min(n, S) rows of L floats an image: at 48x1080x1920
 // 369 MB, where the plain route writes the 398 MB first pass and two
 // 369 MB gathers.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include <cstring>
 
 #include "compact_rows.cuh"
 #include "tf32x3.cuh"
+#include "tma_ring.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
+using ssw::ring::chunk_of;
+using ssw::ring::cp_arrive_noinc;
+using ssw::ring::fence_sums;
+using ssw::ring::regs_dec;
+using ssw::ring::regs_inc;
+using ssw::ring::tma_load;
 using ssw::rows::compact_kernel;
 using ssw::rows::kCompactSmem;
 using ssw::rows::kCompactThreads;
@@ -144,53 +148,7 @@ constexpr size_t kPassSmem = kStages * sizeof(PassStage) + 1024;
 static_assert(kPassSmem + 2 * kStages * sizeof(uint64_t) <= 232448,
               "the ring exceeds a block's shared memory");
 
-// In landscape, warp p (0 or 1) of a pair that shares one 32-position box
-// gives its fragment row rho (0..15) the position 4 chunk_of(p, rho) + rho
-// % 4 of the box: over the warp's 32 threads (rows g or g + 8, k-rows t or
-// t + 4) the swizzled chunk chunk_of ^ t then takes eight values and the 32
-// loads of a fragment value fall in 32 banks.
-__host__ __device__ constexpr int chunk_of(int p, int rho) {
-  return 4 * ((rho / 4) % 2) + rho / 8 + 2 * p;
-}
-
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// The completion of this thread's cp.async copies so far arrives on `bar`
-// (counted in the barrier's expected arrivals).
-__device__ __forceinline__ void cp_arrive_noinc(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Box (c0, c1, c2) of the 3-D tensor map `map` to `dst`; completes on bar.
-__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-template <int kRegs>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-template <int kRegs>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-// Keeps the compiler from moving reads or writes of a wgmma's sums across
-// this point (the sums change under it while the wgmma runs).
-__device__ __forceinline__ void fence_sums(float (&p)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(p[i])::"memory");
-}
 
 // The pass's walk: image by image, of each its column tiles, of each the
 // slot tiles below the image's count (slot fastest, so blocks at work at
@@ -455,35 +413,8 @@ inline bool aligned16(const void* p) {
 // The tensor map of the (batch, h, w) f32 plane y for the pass's X boxes:
 // 32 x 32 floats, 128-byte swizzle, zeros outside the plane.
 cudaError_t x_map(CUtensorMap* map, const float* y, int batch, int h, int w) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000,
-        cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || encode == nullptr) {
-      encode = nullptr;
-      return cudaErrorNotSupported;
-    }
-  }
-  const cuuint64_t dims[3] = {cuuint64_t(w), cuuint64_t(h),
-                              cuuint64_t(batch)};
-  const cuuint64_t strides[2] = {cuuint64_t(w) * sizeof(float),
-                                 cuuint64_t(h) * w * sizeof(float)};
-  const cuuint32_t box[3] = {32, 32, 1}, steps[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(y), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return ssw::ring::map_3d(map, y, w, h, batch, (long long)w * sizeof(float),
+                           (long long)h * w * sizeof(float));
 }
 
 template <bool kLand>

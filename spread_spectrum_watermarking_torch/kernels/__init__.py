@@ -10,7 +10,8 @@ them to 0.
 
 def _modules():
     from . import add_quantize, dct2d_fused, embed_epilogue, fold_pass
-    from . import highest_read, luma_pass, luma_u8, read_tail, topk_select
+    from . import highest_inverse, highest_read, luma_pass, luma_u8
+    from . import read_tail, topk_select
 
     return {"k1": (luma_pass, "LAUNCHES"), "k1_pair": (luma_pass,
                                                        "PAIR_LAUNCHES"),
@@ -26,14 +27,15 @@ def _modules():
             "k3_plane": (topk_select, "PLANE_LAUNCHES"),
             "k3_coeffs": (topk_select, "COEFF_LAUNCHES"),
             "k8": (luma_u8, "LAUNCHES"),
-            "k9": (highest_read, "LAUNCHES")}
+            "k9": (highest_read, "LAUNCHES"),
+            "k10": (highest_inverse, "LAUNCHES")}
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count in this process, by its short name
     (``k1``, ``k1_pair``, ``k1_high``, ``k4``, ``k5``, ``k6a``, ``k6b``,
     ``k1f``, ``k1f_high``, ``k7``, ``k3``, ``k3_plane``, ``k3_coeffs``,
-    ``k8``, ``k9``)."""
+    ``k8``, ``k9``, ``k10``)."""
     return {k: getattr(m, a) for k, (m, a) in _modules().items()}
 
 

@@ -7,12 +7,13 @@ tensors, u8 or float RGB in [0, 1]; the device is the input's.
 ``Precision.HIGHEST``, the default of every config, is the reference-exact
 tier: the full f32 transform (:func:`_forward`, kernel K6a on the card),
 the exact selection ``ranking.top_indices``, and either the sparse inverse
-of the n changed coefficients (:func:`_sparse_idct_delta`, an f32 product)
-or, with ``sparse_idct=False``, the full inverse transform of the changed
-plane (kernel K6b). The luma of a u8 image is kernel K8 on the card. Reads
-transform the derived image only at the n ranked indices (kernel K9 on a
-u8 image on the card, ``dct.dct2_coeffs_at`` otherwise), or in full with
-``sparse_derived=False`` (:func:`prepare_derived`).
+of the n changed coefficients (kernel K10 on the card, over each image's
+distinct rows; its plain version, an f32 product of the factors, on the
+CPU) or, with ``sparse_idct=False``, the full inverse transform of the
+changed plane (kernel K6b). The luma of a u8 image is kernel K8 on the
+card. Reads transform the derived image only at the n ranked indices
+(kernel K9 on a u8 image on the card, ``dct.dct2_coeffs_at`` otherwise),
+or in full with ``sparse_derived=False`` (:func:`prepare_derived`).
 
 ``Precision.HIGH`` and ``Precision.DEFAULT`` are the fast tiers. They
 differ only in the base image's first pass; on a u8 image each stage runs
@@ -41,9 +42,11 @@ because both rank the base image through the same deterministic code (no
 atomics on the path).
 
 The HIGHEST sparse embed adds dY to a u8 image with the sum rounded once,
-as XLA's FMA rounds it: kernel K7 (``..kernels.add_quantize``), quantized
-in the same pass, or in its f32 mode (``colorspace.add_luma_delta_f32``)
-with ``quantize=False``, as for the fast tiers' u8 float output.
+as XLA's FMA rounds it. Quantized to u8, kernel K10
+(``..kernels.highest_inverse``) does it in the same kernel as dY, with
+K7's rounding; with ``quantize=False``, or for a float image, K10's dY mode
+goes into ``colorspace.add_luma_delta_f32`` (K7's f32 mode for a u8
+image), as for the fast tiers' u8 float output.
 
 Rank generation 1 (``rank_version=1``) and the custom insert, extract and
 ordering callables (torch callables, with the JAX package's signatures)
@@ -65,9 +68,9 @@ import torch
 from torch.profiler import record_function
 
 from ..config import Method, Precision, ReadConfig, WriteConfig
-from ..kernels.add_quantize import add_quantize
 from ..kernels.dct2d_fused import inverse_scale
 from ..kernels.embed_epilogue import delta_plane, embed_epilogue
+from ..kernels.highest_inverse import highest_inverse, sparse_delta
 from ..kernels.highest_read import highest_read
 from ..kernels.luma_pass import luma_pass
 from ..kernels.read_tail import read_tail
@@ -145,11 +148,15 @@ def _rank_and_values_fast(rgb: torch.Tensor, n: int, ordering, precision,
 def _sparse_idct_delta(delta: torch.Tensor, idx: torch.Tensor, h: int,
                        w: int, precision: Precision = Precision.DEFAULT
                        ) -> torch.Tensor:
-    """dY (B, H, W) of a sparse coefficient update, the plain way: bf16 at
-    DEFAULT; otherwise the (H, n) @ (n, W) product of the factors at the
-    tier, then times ``f32(4/(W*H))``, as the JAX package orders it."""
+    """dY (B, H, W) of a sparse coefficient update: bf16 at DEFAULT; K10's
+    dY mode at HIGHEST (``..kernels.highest_inverse.sparse_delta``, whose
+    plain version is the f32 product below); otherwise the (H, n) @ (n, W)
+    product of the factors at the tier, then times ``f32(4/(W*H))``, as
+    the JAX package orders it."""
     if precision is Precision.DEFAULT:
         return delta_plane(*dct.sparse_idct_factors(delta, idx, h, w))
+    if precision is Precision.HIGHEST:
+        return sparse_delta(delta, idx, h, w)
     a, b = dct.sparse_factors_f32(delta, idx, h, w)
     return dct.matmul(a.transpose(-1, -2), b, precision) * inverse_scale(h, w)
 
@@ -246,12 +253,13 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
         indices=idx)
     if sparse_idct:
         with record_function("ssw.inverse"):
-            dy = _sparse_idct_delta(new_values - original, idx, h, w,
-                                    Precision.HIGHEST)
+            delta = (new_values - original).to(torch.float32)
             if quantize and rgb.dtype == torch.uint8:
-                # Kernel K7 in its u8 mode: no f32 RGB reaches device memory.
-                return add_quantize(rgb.contiguous(), dy, True), idx, original
-            out = colorspace.add_luma_delta_f32(rgb, dy)
+                # Kernel K10 in its u8 mode: neither dY nor an f32 RGB
+                # reaches device memory.
+                return highest_inverse(rgb, delta, idx), idx, original
+            out = colorspace.add_luma_delta_f32(
+                rgb, _sparse_idct_delta(delta, idx, h, w, Precision.HIGHEST))
     else:
         # The reference's Writer::result: the full inverse of the changed
         # plane, with the base's I and Q.

@@ -20,13 +20,15 @@ from spread_spectrum_watermarking_torch.kernels import add_quantize as k7
 from spread_spectrum_watermarking_torch.kernels import dct2d_fused as k6
 from spread_spectrum_watermarking_torch.kernels import embed_epilogue as k4
 from spread_spectrum_watermarking_torch.kernels import fold_pass as k1f
+from spread_spectrum_watermarking_torch.kernels import highest_inverse as k10
 from spread_spectrum_watermarking_torch.kernels import highest_read as k9
 from spread_spectrum_watermarking_torch.kernels import luma_pass as k1
 from spread_spectrum_watermarking_torch.kernels import luma_u8 as k8
 from spread_spectrum_watermarking_torch.kernels import read_tail as k5
 from spread_spectrum_watermarking_torch.kernels import topk_select as k3
 from spread_spectrum_watermarking_torch.models import pipeline as tp
-from spread_spectrum_watermarking_torch.ops import colorspace, dct, ranking
+from spread_spectrum_watermarking_torch.ops import (colorspace, dct, modulation,
+                                                    ranking)
 
 pytestmark = pytest.mark.cuda
 
@@ -319,17 +321,21 @@ def test_add_quantize_kernel_bit_equal_to_plain(cuda, npix):
 
 
 def test_highest_embed_launches_add_quantize_once(cuda):
+    # The u8 embed is K10 alone (its u8 epilogue has K7's rounding); float
+    # output is K10's dY mode, then K7's f32 mode.
     rng = np.random.default_rng(7)
     rgb = torch.from_numpy(rng.integers(0, 256, (2, 64, 96, 3),
                                         dtype=np.uint8)).to(cuda)
     marks = torch.from_numpy(rng.standard_normal((2, 1, 100)).astype(
         np.float32)).to(cuda)
-    before = k7.LAUNCHES
+    before = (k7.LAUNCHES, k10.LAUNCHES)
     marked, _ = tw.embed_verified(rgb, marks)
     torch.cuda.synchronize()
-    assert k7.LAUNCHES == before + 1 and marked.dtype == torch.uint8
-    out = tw.embed(rgb, marks, quantize=False)  # K7's f32 mode
-    assert k7.LAUNCHES == before + 2 and out.dtype == torch.float32
+    assert (k7.LAUNCHES, k10.LAUNCHES) == (before[0], before[1] + 1)
+    assert marked.dtype == torch.uint8
+    out = tw.embed(rgb, marks, quantize=False)  # K10's dY, K7's f32 mode
+    assert (k7.LAUNCHES, k10.LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert out.dtype == torch.float32
     assert torch.equal(colorspace.f32_to_u8(out), marked)
 
 
@@ -1065,21 +1071,187 @@ def test_highest_read_raises_at_an_index_out_of_range(cuda):
 
 def test_highest_path_goes_through_k8_and_k9(cuda):
     # One HIGHEST embed_verified: K8 twice (the base's and the derived
-    # image's luma), K6a, K7 and K9 once; extract reads through K8 twice
-    # and K9 once more, bit-equal to embed_verified's read; a float image
-    # takes neither.
+    # image's luma), K6a, K10 and K9 once, K7 never; extract reads through
+    # K8 twice and K9 once more, bit-equal to embed_verified's read; a
+    # float image takes neither.
     rng = np.random.default_rng(19)
     rgb = torch.from_numpy(rng.integers(0, 256, (2, 96, 128, 3),
                                         dtype=np.uint8)).to(cuda)
     marks = torch.from_numpy(rng.standard_normal((2, 1, 200)).astype(
         np.float32)).to(cuda)
-    before = (k8.LAUNCHES, k9.LAUNCHES, k6.FORWARD_LAUNCHES, k7.LAUNCHES)
+    before = (k8.LAUNCHES, k9.LAUNCHES, k6.FORWARD_LAUNCHES, k10.LAUNCHES,
+              k7.LAUNCHES)
     marked, ext = tw.embed_verified(rgb, marks)
     torch.cuda.synchronize()
-    assert (k8.LAUNCHES, k9.LAUNCHES, k6.FORWARD_LAUNCHES, k7.LAUNCHES) == (
-        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1)
+    assert (k8.LAUNCHES, k9.LAUNCHES, k6.FORWARD_LAUNCHES, k10.LAUNCHES,
+            k7.LAUNCHES) == (before[0] + 2, before[1] + 1, before[2] + 1,
+                             before[3] + 1, before[4])
     assert torch.equal(tw.extract(rgb, marked, 200), ext)
     assert (k8.LAUNCHES, k9.LAUNCHES) == (before[0] + 4, before[1] + 2)
     tw.extract(rgb.float() / 255.0, marked.float() / 255.0, 200)
     assert (k8.LAUNCHES, k9.LAUNCHES) == (before[0] + 4, before[1] + 2)
 
+
+
+def _updates_at(idx, seed):
+    """f32 updates of the size a mark makes, one per index."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(idx.shape) * 20.0).astype(
+        np.float32)).to(idx.device)
+
+
+def _k10_gates(rgb, delta, idx):
+    """K10's two modes on one input, each launch counted, and the gates of
+    ``highest_inverse.gates`` on them."""
+    h, w = rgb.shape[1:3]
+    before = k10.LAUNCHES
+    dy = k10.sparse_delta(delta, idx, h, w)
+    out = k10.highest_inverse(rgb, delta, idx)
+    torch.cuda.synchronize()
+    assert k10.LAUNCHES == before + 2
+    assert dy.dtype == torch.float32 and dy.shape == rgb.shape[:3]
+    assert out.dtype == torch.uint8 and out.shape == rgb.shape
+    return dy, out, k10.gates(dy, delta, idx, rgb, out)
+
+
+def _k10_passes(g):
+    return (g["within_bound"] and g["within_f64"] and g["finite"]
+            and g["u8_bit_equal_own_dy"] and g["max_u8_step_from_plain"] <= 1)
+
+
+@pytest.mark.parametrize("n", [1, 200, 1000])
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_highest_inverse_kernel_passes_its_gates(cuda, h, w, n):
+    # dY within k10_bound of the plain version and no further from the f64
+    # dY than the gates allow; the u8 output K7's rounding of that dY and
+    # within one step of the plain u8; indices with repeats.
+    rgb, _ = _images(21, h, w, cuda)
+    idx = _ranked(h, w, n, cuda)
+    _, _, g = _k10_gates(rgb, _updates_at(idx, 21), idx)
+    assert _k10_passes(g), g
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (1920, 1080)])
+def test_highest_inverse_no_worse_than_the_plain_route(cuda, h, w):
+    # At the base's ranked indices and a mark's updates, the 3xTF32 product
+    # over the distinct rows lies no further from the f64 dY than cuBLAS's
+    # f32 product over the n indices.
+    rng = np.random.default_rng(22)
+    rgb = torch.from_numpy(rng.integers(0, 256, (4, h, w, 3),
+                                        dtype=np.uint8)).to(cuda)
+    flat, idx = tw.prepare_base(rgb, 1000)
+    marks = torch.from_numpy(rng.standard_normal((4, 1000)).astype(
+        np.float32)).to(cuda)
+    orig = torch.gather(flat, -1, idx)
+    cfg = tw.WriteConfig()
+    delta = modulation.embed_marks(orig, marks, cfg.insertion.method,
+                                   cfg.insertion.alpha) - orig
+    _, _, g = _k10_gates(rgb, delta, idx)
+    assert _k10_passes(g) and g["no_worse_than_plain"], g
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_highest_inverse_repeats_and_ignores_the_batch(cuda, h, w):
+    # Bit for bit: a second call; each image alone and in other splits of
+    # the batch; one shared index set; so Writer.mark of one image is the
+    # batch's.
+    rgb, _ = _images(23, h, w, cuda, b=4)
+    idx = _ranked(h, w, 500, cuda, b=4)
+    delta = _updates_at(idx, 23)
+    whole = k10.highest_inverse(rgb, delta, idx)
+    dy = k10.sparse_delta(delta, idx, h, w)
+    assert torch.equal(whole, k10.highest_inverse(rgb, delta, idx))
+    assert torch.equal(dy, k10.sparse_delta(delta, idx, h, w))
+    for lo, hi in ((0, 1), (1, 4), (2, 3)):
+        part = k10.highest_inverse(rgb[lo:hi], delta[lo:hi].contiguous(),
+                                   idx[lo:hi].contiguous())
+        assert torch.equal(part, whole[lo:hi])
+    shared = k10.highest_inverse(rgb, delta, idx[2])
+    assert torch.equal(shared[2], whole[2])
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (1920, 1080), (640, 444)])
+def test_highest_inverse_slot_edges_match_each_image_alone(cuda, h, w):
+    # Images whose indices need 1, 31, 32, 33, 64 and 65 distinct rows, at
+    # the edges of the product's k-tiles of 32 slots, and one whose 1000
+    # indices share one row: the batch passes the gates, and each image
+    # comes out, bit for bit, as it does alone.
+    n, counts = 1000, (1, 31, 32, 33, 64, 65)
+    rgb, _ = _images(24, h, w, cuda, b=len(counts))
+    s, l = min(h, w), max(h, w)
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    c = torch.arange(n, device=cuda) % l
+    idx = torch.empty((len(counts), n), dtype=torch.int64, device=cuda)
+    for i, k in enumerate(counts):
+        rows = torch.randperm(s, generator=gen, device=cuda)[:k]
+        a = rows[torch.arange(n, device=cuda) % k]
+        idx[i] = a * w + c if h <= w else c * w + a
+    got, _, _ = k5.compact_rows_reference(idx.cpu(), h, w, len(counts))
+    assert got.tolist() == list(counts)
+    delta = _updates_at(idx, 24)
+    _, whole, g = _k10_gates(rgb, delta, idx)
+    assert _k10_passes(g), g
+    for i in range(len(counts)):
+        alone = k10.highest_inverse(rgb[i:i + 1], delta[i:i + 1],
+                                    idx[i:i + 1])
+        assert torch.equal(alone[0], whole[i])
+
+
+@pytest.mark.parametrize("view", ["one_byte_in", "crop", "transposed"])
+@pytest.mark.parametrize("h,w", [(444, 640), (640, 444)])
+def test_highest_inverse_takes_views(cuda, h, w, view):
+    # Byte loads at the view's strides: an image one byte into its storage,
+    # a crop inside a border, a transposed layout; each marks what its
+    # contiguous copy marks, bit for bit.
+    rgb, _ = _images(25, h, w, cuda)
+    idx = _ranked(h, w, 1000, cuda)
+    delta = _updates_at(idx, 25)
+    if view == "one_byte_in":
+        moved = _one_byte_in(rgb)
+        assert moved.data_ptr() % 4 != 0
+    elif view == "crop":
+        moved = _crop(rgb)
+        assert not moved.is_contiguous()
+    else:
+        moved = rgb.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not moved.is_contiguous()
+    want = k10.highest_inverse(rgb, delta, idx)
+    assert torch.equal(k10.highest_inverse(moved, delta, idx), want)
+    assert torch.equal(want, k7.add_quantize_reference(
+        rgb, k10.sparse_delta(delta, idx, h, w), True))
+
+
+_K10_OUT_OF_RANGE = textwrap.dedent("""
+    import torch
+    from spread_spectrum_watermarking_torch.kernels import highest_inverse as k10
+    delta = torch.ones((2, 64), device="cuda")
+    idx = torch.zeros((2, 64), dtype=torch.int64, device="cuda")
+    idx[{image}, 5] = {value}
+    k10.sparse_delta(delta, idx, 37, 59)
+    torch.cuda.synchronize()
+""")
+
+
+def test_highest_inverse_raises_at_an_index_out_of_range(cuda):
+    # The compaction's device-side assert fails, as K9's does; each bad
+    # call runs in a process of its own. The wrapper refuses the rest.
+    root = Path(__file__).resolve().parent.parent
+    for image, value in ((0, -1), (1, 37 * 59)):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             _K10_OUT_OF_RANGE.format(image=image, value=value)],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        assert proc.returncode != 0
+        assert "device-side assert" in proc.stderr, proc.stderr[-2000:]
+    rgb, _ = _images(26, 37, 59, cuda)
+    idx = _ranked(37, 59, 64, cuda)
+    delta = _updates_at(idx, 26)
+    assert bool(k10.sparse_delta(delta, idx, 37, 59).isfinite().all())
+    with pytest.raises(ValueError):
+        k10.highest_inverse(rgb, delta, idx.int())  # int32 indices
+    with pytest.raises(ValueError):
+        k10.highest_inverse(rgb, delta.double(), idx)  # delta not f32
+    with pytest.raises(ValueError):
+        k10.highest_inverse(rgb, delta, idx.cpu())  # CPU/CUDA mix
+    with pytest.raises(ValueError):
+        k10.highest_inverse(rgb.cpu(), delta, idx)  # CPU/CUDA mix

@@ -307,7 +307,7 @@ def test_tile_shape_matches_the_source():
 
 
 def _chunk_of(p, rho):
-    """``chunk_of`` of ``csrc/highest_read.cu``: the 16-byte chunk of its
+    """``chunk_of`` of ``csrc/tma_ring.cuh``: the 16-byte chunk of its
     32-position box that fragment row rho of warp p (of the pair sharing
     the box) stands for in landscape."""
     return 4 * ((rho // 4) % 2) + rho // 8 + 2 * p
@@ -324,8 +324,8 @@ def test_fragment_positions_and_banks():
     # rows the box's 32 positions once each, and each of a warp's four
     # fragment loads (rows g, g + 8 at k-rows t, t + 4 of k-step q) hits
     # 32 different banks; in portrait (rows = positions, 32 k each) too.
-    text = _SOURCE.read_text()
-    assert "return 4 * ((rho / 4) % 2) + rho / 8 + 2 * p;" in text
+    assert "return 4 * ((rho / 4) % 2) + rho / 8 + 2 * p;" in (
+        _SOURCE.parent / "tma_ring.cuh").read_text()
     assert "return r * kRowFloats + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);" \
         in (_SOURCE.parent / "tf32x3.cuh").read_text()
     pos = sorted(4 * _chunk_of(p, rho) + rho % 4 for p in (0, 1)
