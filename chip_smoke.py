@@ -1625,14 +1625,36 @@ def k10_inputs(content: str, seed: int, b: int, h: int, w: int):
     return base, delta, idx
 
 
+def _k10_views(rgb):
+    """Views of ``rgb`` that take K10's other epilogue paths: ``crop``, the
+    image inside a border of 8 pixels (rows 3 (W + 16) bytes apart, its
+    base 8 bytes past a 16-byte boundary: 8- or 4-byte copies), and
+    ``one_byte_in``, a contiguous copy one byte into its storage (its
+    bytes one at a time)."""
+    import torch
+
+    b, h, w, _ = rgb.shape
+    big = torch.zeros((b, h + 16, w + 16, 3), dtype=rgb.dtype,
+                      device=rgb.device)
+    big[:, 8:-8, 8:-8] = rgb
+    yield "crop", big[:, 8:-8, 8:-8]
+    del big
+    odd = torch.empty(rgb.numel() + 1, dtype=rgb.dtype,
+                      device=rgb.device)[1:].view(rgb.shape)
+    odd.copy_(rgb)
+    yield "one_byte_in", odd
+
+
 def _compare_k10(case: str, rgb, delta, idx, strict: bool) -> float:
     """K10's two modes on ``(rgb, delta, idx)`` through
     ``highest_inverse.gates`` (dY within ``k10_bound``, an f64 error at
     most the plain version's plus one pass's split term and, where
     ``strict``, no larger than the plain route's; the u8 output K7's
-    rounding of its own dY and within one step of the plain u8), and a
-    second call of each bit-identical; logs the readings, raises outside a
-    gate, returns max |err| of dY."""
+    rounding of its own dY and within one step of the plain u8), a second
+    call of each bit-identical, and the u8 mode on each of ``_k10_views``
+    bit-identical to that gated output (so each epilogue path is held to
+    the gates); logs the readings, raises outside a gate, returns max |err|
+    of dY."""
     import torch
 
     from spread_spectrum_watermarking_torch.kernels import highest_inverse as k10
@@ -1643,12 +1665,15 @@ def _compare_k10(case: str, rgb, delta, idx, strict: bool) -> float:
     torch.cuda.synchronize()
     repeat = bool(torch.equal(dy, k10.sparse_delta(delta, idx, h, w))
                   and torch.equal(out, k10.highest_inverse(rgb, delta, idx)))
+    views = {name: bool(torch.equal(k10.highest_inverse(v, delta, idx), out))
+             for name, v in _k10_views(rgb)}
     g = k10.gates(dy, delta, idx, rgb, out)
     log("k10", case=case, shape=list(rgb.shape), n=idx.shape[-1],
-        repeat_bit_equal=repeat, **g)
+        repeat_bit_equal=repeat, views_bit_equal=views, **g)
     if not (g["within_bound"] and g["within_f64"] and g["finite"]
             and g["u8_bit_equal_own_dy"] and g["max_u8_step_from_plain"] <= 1
-            and repeat and (g["no_worse_than_plain"] or not strict)):
+            and repeat and all(views.values())
+            and (g["no_worse_than_plain"] or not strict)):
         raise AssertionError(f"K10 {case} {tuple(rgb.shape)}: outside its "
                              "gates")
     return g["max_abs_err"]
@@ -1706,6 +1731,8 @@ def _k10_timing(rgb, delta, idx) -> dict:
                peak_mb=peak_mb(lambda: k10.highest_inverse(rgb, delta, idx)),
                old_route_peak_mb=peak_mb(old_route), **k10_bound_ms(rgb, idx))
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["pass_share_of_bound"] = rec["bound_ms"] / rec["device_ms"].get(
+        "pass_kernel", [float("inf")])[0]
     return rec
 
 

@@ -114,6 +114,7 @@ using ssw::tf32::wgmma_n64;
 using ssw::tf32::wgmma_wait;
 using ssw::u8::add_clamped;
 using ssw::u8::quantize;
+using ssw::u8::round_byte;
 using ssw::wg::mbar_arrive;
 using ssw::wg::mbar_expect_tx;
 using ssw::wg::mbar_init;
@@ -124,12 +125,12 @@ constexpr int kWgCols = 64;                   // a warpgroup's along L
 constexpr int kConsumers = 3;                 // consumer warpgroups
 constexpr int kCols = kWgCols * kConsumers;   // a tile's positions along L
 constexpr int kDepth = kRowFloats;            // slots a stage
-constexpr int kStages = 4;                    // the ring
+constexpr int kStages = 3;                    // the ring
 constexpr int kPassThreads = 128 * (1 + kConsumers);
 constexpr int kBoxes = kCols / 32;            // TMA boxes of 32 x 32 a stage
 constexpr uint32_t kXBytes = kCols * kDepth * sizeof(float);
 constexpr int kProducerRegs = 40, kConsumerRegs = 152;
-constexpr int kEpPitch = kWgCols + 1;         // the epilogue tile's pitch
+constexpr int kEpPitch = kWgCols + 4;         // the staged dY's pitch
 constexpr int kBuildThreads = 256;            // mbuild: 8 warps
 constexpr int kBuildSlots = 8;                // mbuild: slots a warp
 constexpr int kBuildRows = kBuildSlots * kBuildThreads / 32;  // a block's
@@ -149,7 +150,10 @@ struct Stage {
 };
 static_assert(sizeof(Stage) % 1024 == 0, "stages keep tiles aligned");
 constexpr size_t kEpBytes = kConsumers * kSPos * kEpPitch * sizeof(float);
-constexpr size_t kPassSmem = kStages * sizeof(Stage) + kEpBytes + 1024;
+// A warpgroup's u8 sub-tile, word by word, as its threads copy it.
+constexpr size_t kU8Bytes = kConsumers * kSPos * 3 * kWgCols;
+constexpr size_t kPassSmem =
+    kStages * sizeof(Stage) + kEpBytes + kU8Bytes + 1024;
 static_assert(kPassSmem + 2 * kStages * sizeof(uint64_t) <= 232448,
               "the ring exceeds a block's shared memory");
 
@@ -293,64 +297,116 @@ gather_kernel(const float* __restrict__ b_hi, const float* __restrict__ b_lo,
   }
 }
 
-// V bytes moved as one load or store.
-template <int V>
-struct Bytes;
-template <>
-struct Bytes<16> { using T = uint4; };
-template <>
-struct Bytes<8> { using T = uint2; };
-template <>
-struct Bytes<4> { using T = uint32_t; };
-
-// The u8 epilogue of one warpgroup's sub-tile whose image rows are runs of
-// pixel-contiguous bytes: `rows` rows of `npx` pixels, row r's bytes at
-// src + r * src_row and dst + r * dst_row, pixel p's dY at
-// dy[r * dy_r + p * dy_p]. A row is 3 npx / V vectors of V bytes, each
-// loaded and stored as one (src, dst, both row strides V-aligned; V
-// divides 3 npx since it divides 3 W and the sub-tile starts at a
-// multiple of 64 pixels); byte o of a row is channel o % 3 of pixel o / 3.
-template <int V>
-__device__ __forceinline__ void epilogue_rows(
-    const uint8_t* __restrict__ src, long long src_row,
-    uint8_t* __restrict__ dst, long long dst_row, const float* dy, int dy_r,
-    int dy_p, int rows, int npx, int tid) {
-  using T = typename Bytes<V>::T;
-  const int full = 3 * npx / V;
-  // Two vectors a thread in flight: all of a thread's vectors loaded at
-  // once spilled the pass's registers.
-#pragma unroll 2
-  for (int c = tid; c < rows * full; c += 128) {
-    const int r = c / full, o0 = (c % full) * V;
-    const T v = *reinterpret_cast<const T*>(src + r * src_row + o0);
-    uint8_t in[V], res[V];
-    memcpy(in, &v, V);
-#pragma unroll
-    for (int b = 0; b < V; ++b)
-      res[b] = uint8_t(quantize(
-          add_clamped(in[b], dy[r * dy_r + (o0 + b) / 3 * dy_p])));
-    T w;
-    memcpy(&w, res, V);
-    *reinterpret_cast<T*>(dst + r * dst_row + o0) = w;
-  }
+// 4 bytes from global to shared memory by cp.async.
+__device__ __forceinline__ void cp_word(uint32_t* dst, const uint8_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   ssw::tf32::smem_addr(dst)),
+               "l"(src)
+               : "memory");
 }
 
+// Four pixels' 12 bytes (words w0, w1, w2) plus their dY (d) with K7's
+// rounding, as three words.
+__device__ __forceinline__ uint3 round_pixels(uint32_t w0, uint32_t w1,
+                                              uint32_t w2, float4 d) {
+  auto word = [](uint32_t q0, uint32_t q1, uint32_t q2, uint32_t q3) {
+    return __byte_perm(__byte_perm(q0, q1, 0x0040),
+                       __byte_perm(q2, q3, 0x0040), 0x5410);
+  };
+  return make_uint3(
+      word(round_byte(w0, 0, d.x), round_byte(w0, 1, d.x),
+           round_byte(w0, 2, d.x), round_byte(w0, 3, d.y)),
+      word(round_byte(w1, 0, d.y), round_byte(w1, 1, d.y),
+           round_byte(w1, 2, d.z), round_byte(w1, 3, d.z)),
+      word(round_byte(w2, 0, d.z), round_byte(w2, 1, d.w),
+           round_byte(w2, 2, d.w), round_byte(w2, 3, d.w)));
+}
+
+// The u8 epilogue of one warpgroup's sub-tile whose image rows are runs of
+// pixel-contiguous bytes, run a few units at a time under the products of
+// the warpgroup's next tile: `rows` rows of `npx` pixels (npx a multiple
+// of 4, since W is where rows start on words), row r's bytes at src + r *
+// src_row and dst + r * dst_row, pixel p's dY at dy[r * kEpPitch + p] (the
+// staged tile). A unit is four pixels, three words; thread tid takes units
+// tid, tid + 128, ...: start() copies their words into the thread's own
+// words of `own` by cp.async, so that none waits on device memory when it
+// is rounded and stored, and no other thread reads them.
+struct Drain {
+  const uint8_t* src;
+  uint8_t* dst;
+  long long src_row, dst_row;
+  const float* dy;
+  const uint32_t* own;
+  int q, mine, done;  // units a row; the thread's units, and those done
+
+  // Unit u's row: a shift in a whole sub-tile's rows of 16 units.
+  __device__ __forceinline__ int row_of(int u) const {
+    return q == 16 ? u >> 4 : u / q;
+  }
+
+  __device__ __forceinline__ void start(const uint8_t* s, long long s_row,
+                                        uint8_t* d, long long d_row,
+                                        const float* y, uint32_t* words,
+                                        int rows, int npx, int tid) {
+    src = s, dst = d, src_row = s_row, dst_row = d_row, dy = y, own = words;
+    q = npx / 4;
+    const int units = rows * q;
+    mine = units > tid ? (units - tid + 127) / 128 : 0;
+    done = 0;
+    for (int k = 0, u = tid; k < mine; ++k, u += 128) {
+      const int r = row_of(u);
+      const uint8_t* at = src + r * src_row + 12 * (u - r * q);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) cp_word(words + 3 * u + i, at + 4 * i);
+    }
+    ssw::tf32::cp_commit();
+  }
+
+  // Rounds and stores the thread's units until `target` of them are done.
+  __device__ __forceinline__ void step_to(int target) {
+    target = min(target, mine);
+    if (done >= target) return;
+    ssw::tf32::cp_wait<0>();
+    for (; done < target; ++done) {
+      const int u = threadIdx.x % 128 + 128 * done;
+      const int r = row_of(u), p0 = 4 * (u - r * q);
+      const uint3 res =
+          round_pixels(own[3 * u], own[3 * u + 1], own[3 * u + 2],
+                       *reinterpret_cast<const float4*>(dy + r * kEpPitch +
+                                                        p0));
+      uint32_t* out = reinterpret_cast<uint32_t*>(dst + r * dst_row + 3 * p0);
+      out[0] = res.x;
+      out[1] = res.y;
+      out[2] = res.z;
+    }
+  }
+
+  __device__ __forceinline__ void finish() { step_to(mine); }
+};
+
+// The pass's output: kOut 0 f32 dY; 1 u8, one byte at a time (any view);
+// 4 u8, in words (every image row of rgb and of out starts on one), each
+// tile's epilogue run under the next tile's products.
+//
 // dY = s D_S[:, A] M for every image, then the epilogue: u8 `out` (batch,
 // h, w, 3) contiguous from `rgb` at element strides (sb, sh, sw, sc), or
 // f32 dY `out` (batch, h, w). mmap: M (3-D: l_pitch-strided rows of L
 // floats, m_rows rows an image, batch images); gmap: G (3-D: rows of m_rows
 // slots, S rows an image, the batch's hi parts, then its lo parts).
+template <int kOut>
 __global__ void __launch_bounds__(kPassThreads, 1)
 pass_kernel(const __grid_constant__ CUtensorMap mmap,
             const __grid_constant__ CUtensorMap gmap,
             const int* __restrict__ count, float scale,
             const uint8_t* __restrict__ rgb, long long sb, long long sh,
-            long long sw, long long sc, void* __restrict__ out, bool u8_out,
-            int vec, int batch, int h, int w) {
+            long long sw, long long sc, void* __restrict__ out, int batch,
+            int h, int w) {
+  constexpr bool kDrain = kOut == 4;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Stage* st = reinterpret_cast<Stage*>(
       smem_raw + ((1024 - (ssw::tf32::smem_addr(smem_raw) & 1023)) & 1023));
   float* ep = reinterpret_cast<float*>(st + kStages);
+  uint32_t* u8 = reinterpret_cast<uint32_t*>(ep + kEpBytes / sizeof(float));
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   const bool land = h <= w;
@@ -399,6 +455,7 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
   regs_inc<kConsumerRegs>();
   const int wg = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x % 128;
   int pos[2];  // the positions of fragment rows g and g + 8 in the tile
   int off[4];  // k-step 0's four fragment values in a stage's X
   const int box = 2 * wg + warp / 2;
@@ -411,6 +468,8 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
   for (int e = 0; e < 4; ++e)
     off[e] = 32 * kDepth * box + sw128(t + 4 * (e / 2), pos[e % 2] % 32);
   float* tile_ep = ep + wg * kSPos * kEpPitch;
+  Drain drain;  // the last tile's u8 epilogue, where kDrain
+  drain.mine = drain.done = 0;
 
   float acc[32], p0[32], p1[32];
   uint32_t ah[4][4], al[4][4];
@@ -428,7 +487,8 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
       const uint64_t dh = sw128_desc(sg.b_hi), dl = sw128_desc(sg.b_lo);
       // The stage's four k-steps as K9's pass runs them: step q + 1's
       // products issued before step q is waited for and added; the last
-      // step drained with the stage.
+      // step drained with the stage. While step 0's products run, a few
+      // words of the last tile's epilogue, spread over the tile's stages.
 #pragma unroll
       for (int q = 0; q < kDepth / 8; ++q) {
         float(&p)[32] = q % 2 ? p1 : p0;
@@ -443,6 +503,10 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
         wgmma_n64(p, ah[q], dh + 2 * q, 1);
         wgmma_commit();
         fence_sums(p);
+        if constexpr (kDrain) {
+          if (q == 0)
+            drain.step_to(((kt + 1) * drain.mine + ktiles - 1) / ktiles);
+        }
         if (q > 0) {  // step q - 1 is done: added while step q runs
           wgmma_wait<1>();
           fence_sums(prev);
@@ -457,59 +521,55 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
       if (lane == 0) mbar_arrive(&empty[si]);  // the stage is free
     }
 
-    // acc[4 j + 2 hh + e]: position pos[hh] along L, 8 j + 2 t + e along S.
+    if constexpr (kDrain) drain.finish();  // the last tile's epilogue
+    // acc[4 j + 2 hh + e]: position pos[hh] along L, 8 j + 2 t + e along S;
+    // staged as image rows of pixels.
     wg_sync(wg);  // the warpgroup's reads of the last tile are done
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
       for (int j = 0; j < kSPos / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          tile_ep[(8 * j + 2 * t + e) * kEpPitch + pos[hh] - kWgCols * wg] =
+        for (int e = 0; e < 2; ++e) {
+          const int a = pos[hh] - kWgCols * wg, b = 8 * j + 2 * t + e;
+          tile_ep[land ? b * kEpPitch + a : a * kEpPitch + b] =
               __fmul_rn(acc[4 * j + 2 * hh + e], scale);
+        }
     wg_sync(wg);
     // The tile's pixels, image row by image row: along L in landscape,
     // along S in portrait.
-    const int l0 = m0 + kWgCols * wg, tid = threadIdx.x % 128;
+    const int l0 = m0 + kWgCols * wg;
     const int y0 = land ? n0 : l0, x0 = land ? l0 : n0;
     const int rows = max(0, min(kSPos, (land ? s : l) - y0));
     const int npx = max(0, min(kWgCols, (land ? l : s) - x0));
-    if (u8_out && vec > 1) {
-      // Pixel-contiguous rows: V-byte vectors, V = vec.
-      const uint8_t* src = rgb + image * sb + y0 * sh + 3LL * x0;
-      uint8_t* dst = static_cast<uint8_t*>(out) +
-                     3 * (((long long)image * h + y0) * w + x0);
-      const int dy_r = land ? kEpPitch : 1, dy_p = land ? 1 : kEpPitch;
-      if (vec == 16)
-        epilogue_rows<16>(src, sh, dst, 3LL * w, tile_ep, dy_r, dy_p, rows,
-                          npx, tid);
-      else if (vec == 8)
-        epilogue_rows<8>(src, sh, dst, 3LL * w, tile_ep, dy_r, dy_p, rows,
-                         npx, tid);
-      else
-        epilogue_rows<4>(src, sh, dst, 3LL * w, tile_ep, dy_r, dy_p, rows,
-                         npx, tid);
-      continue;
-    }
-    // Any view (u8), or dY (f32): one pixel at a time.
+    if constexpr (kDrain) {
+      drain.start(rgb + image * sb + y0 * sh + 3LL * x0, sh,
+                  static_cast<uint8_t*>(out) +
+                      3 * (((long long)image * h + y0) * w + x0),
+                  3LL * w, tile_ep, u8 + wg * (kSPos * 3 * kWgCols / 4), rows,
+                  npx, tid);
+    } else {
+      // Any view (u8), or dY (f32): one pixel at a time.
 #pragma unroll 4
-    for (int q = tid; q < kSPos * kWgCols; q += 128) {
-      const int r = q / kWgCols, p = q % kWgCols;
-      if (r >= rows || p >= npx) continue;
-      const float dy = tile_ep[land ? r * kEpPitch + p : p * kEpPitch + r];
-      const long long at = ((long long)image * h + y0 + r) * w + x0 + p;
-      if (u8_out) {
-        const uint8_t* src =
-            rgb + image * sb + (y0 + r) * sh + (x0 + p) * sw;
-        uint8_t* dst = static_cast<uint8_t*>(out) + 3 * at;
+      for (int q = tid; q < kSPos * kWgCols; q += 128) {
+        const int r = q / kWgCols, p = q % kWgCols;
+        if (r >= rows || p >= npx) continue;
+        const float dy = tile_ep[r * kEpPitch + p];
+        const long long at = ((long long)image * h + y0 + r) * w + x0 + p;
+        if constexpr (kOut == 1) {
+          const uint8_t* src =
+              rgb + image * sb + (y0 + r) * sh + (x0 + p) * sw;
+          uint8_t* dst = static_cast<uint8_t*>(out) + 3 * at;
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          dst[c] = uint8_t(quantize(add_clamped(src[c * sc], dy)));
-      } else {
-        static_cast<float*>(out)[at] = dy;
+          for (int c = 0; c < 3; ++c)
+            dst[c] = uint8_t(quantize(add_clamped(src[c * sc], dy)));
+        } else {
+          static_cast<float*>(out)[at] = dy;
+        }
       }
     }
   }
+  if constexpr (kDrain) drain.finish();
 }
 
 inline bool aligned16(const void* p) {
@@ -605,27 +665,25 @@ extern "C" int ssw_highest_inverse(
                           (long long)m_rows * sizeof(float),
                           (long long)s * m_rows * sizeof(float), kSPos);
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(
-      pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(kPassSmem));
-  if (err != cudaSuccess) return int(err);
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return int(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return int(err);
   const long long tiles =
       (long long)batch * cdiv(s, kSPos) * cdiv(l, kCols);
-  // The widest vector that every row of the image and of the output starts
-  // on (pixel-contiguous rows only), 1 for byte accesses.
-  int vec = 1;
-  if (u8_out && sc == 1 && sw == 3) {
-    for (int v = 16; v >= 4 && vec == 1; v /= 2)
-      if (reinterpret_cast<uintptr_t>(rgb) % v == 0 && sb % v == 0 &&
-          sh % v == 0 && (3LL * w) % v == 0)
-        vec = v;
-  }
-  pass_kernel<<<int(tiles < sms ? tiles : sms), kPassThreads, kPassSmem,
-                stream>>>(mmap, gmap, count, scale, rgb, sb, sh, sw, sc, out,
-                          u8_out != 0, vec, batch, h, w);
+  // Words where every image row of rgb and of out starts on a 4-byte word
+  // (pixel-contiguous rows; out is contiguous), bytes for any other view.
+  const bool words = sc == 1 && sw == 3 &&
+                     reinterpret_cast<uintptr_t>(rgb) % 4 == 0 &&
+                     sb % 4 == 0 && sh % 4 == 0 && (3LL * w) % 4 == 0;
+  auto kernel = !u8_out ? pass_kernel<0>
+                : words ? pass_kernel<4>
+                        : pass_kernel<1>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kPassSmem));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<int(tiles < sms ? tiles : sms), kPassThreads, kPassSmem,
+           stream>>>(mmap, gmap, count, scale, rgb, sb, sh, sw, sc, out,
+                     batch, h, w);
   return int(cudaGetLastError());
 }

@@ -8,6 +8,15 @@
 // port's colorspace.f32_to_u8 round them. Every f32 operation is an _rn
 // intrinsic: nvcc contracts a*b + c into an FMA by default (-fmad=true),
 // which would silently change the quantize step.
+//
+// No conversion instruction: on the H100 the conversions (I2F, F2I and
+// floorf's FRND) run at 16 a clock per SM against 128 for f32 adds, so
+// three of them a byte bounded K10's u8 epilogue (36,864 bytes a tile,
+// 6,912 clocks). float(u) is the f32 whose bits are 2^23's with u in the
+// mantissa, less 2^23 (exact for u < 2^23); floor(t) of 0 <= t < 2^23 is
+// t + 2^23 rounded down, whose mantissa holds it (the sum lies in [2^23,
+// 2^24), where the f32 values are the integers). Both give the
+// conversions' bits exactly.
 #pragma once
 
 #include <cstdint>
@@ -19,13 +28,42 @@ namespace u8 {
 namespace {  // one copy per source that includes this header
 
 constexpr float kInv255 = 0x1.010102p-8f;  // f32(1 / 255)
+constexpr float kTwo23 = 0x1p23f;
+constexpr uint32_t kTwo23Bits = 0x4b000000u;
 
-__device__ __forceinline__ float add_clamped(uint32_t u, float dy) {
-  return fminf(fmaxf(__fmaf_rn(float(u), kInv255, dy), 0.0f), 1.0f);
+// float(u) for u < 2^23.
+__device__ __forceinline__ float to_f32(uint32_t u) {
+  return __fsub_rn(__uint_as_float(kTwo23Bits | u), kTwo23);
 }
 
+__device__ __forceinline__ float add_clamped(uint32_t u, float dy) {
+  return fminf(fmaxf(__fmaf_rn(to_f32(u), kInv255, dy), 0.0f), 1.0f);
+}
+
+// floor((v * 255) + 0.5) for v in [0, 1], as the low byte of an f32's
+// bits (the rest of them 2^23's).
+__device__ __forceinline__ uint32_t quantize_bits(float v) {
+  const float t = __fadd_rn(__fmul_rn(v, 255.0f), 0.5f);
+  return __float_as_uint(__fadd_rd(t, kTwo23));
+}
+
+// floor((v * 255) + 0.5) for v in [0, 1].
 __device__ __forceinline__ uint32_t quantize(float v) {
-  return uint32_t(floorf(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f)));
+  return quantize_bits(v) - kTwo23Bits;
+}
+
+// quantize(add_clamped(u, dy)) as the low byte of an f32's bits, for byte
+// `b` of the word `word`: the byte placed in 2^23's mantissa by one byte
+// permute, the clamp the FMA's saturation (which gives +0 for -0 and NaN,
+// where fmaxf gives either zero: both quantize to 0).
+__device__ __forceinline__ uint32_t round_byte(uint32_t word, int b,
+                                               float dy) {
+  const float u = __fsub_rn(
+      __uint_as_float(__byte_perm(word, kTwo23Bits, 0x7650 + b)), kTwo23);
+  float v;
+  asm("fma.rn.sat.f32 %0, %1, %2, %3;" : "=f"(v) : "f"(u), "f"(kInv255),
+      "f"(dy));
+  return quantize_bits(v);
 }
 
 }  // namespace

@@ -320,6 +320,26 @@ def test_add_quantize_kernel_bit_equal_to_plain(cuda, npix):
                 t.view(torch.uint8), want.view(torch.uint8))
 
 
+def test_add_quantize_rounds_every_byte_at_its_boundaries(cuda):
+    # csrc/u8_round.cuh (K7's rounding, shared with K10) computes float(u)
+    # and the quantize step's floor without conversion instructions: every
+    # byte against dY that puts v * 255 + 0.5 at, just below and just above
+    # each integer, and dY far outside [-1, 1], bit for bit the plain
+    # version's.
+    u = torch.arange(256, device=cuda, dtype=torch.float32)
+    k = torch.arange(256, device=cuda, dtype=torch.float32)
+    at = ((k[None, :] - 0.5) - u[:, None]) / 255.0
+    steps = torch.tensor([-3e-7, -1e-7, 0.0, 1e-7, 3e-7], device=cuda)
+    dy = (at[..., None] + steps).reshape(256, -1)
+    dy = torch.cat([dy, torch.tensor([-5.0, -1.0, 1.0, 5.0], device=cuda)
+                    .expand(256, 4)], 1)
+    rgb = torch.arange(256, device=cuda, dtype=torch.uint8)[:, None, None] \
+        .expand(256, dy.shape[1], 3).contiguous()
+    dy = dy.contiguous()
+    got = k7.add_quantize(rgb, dy, True)
+    assert torch.equal(got, k7.add_quantize_reference(rgb, dy, True))
+
+
 def test_highest_embed_launches_add_quantize_once(cuda):
     # The u8 embed is K10 alone (its u8 epilogue has K7's rounding); float
     # output is K10's dY mode, then K7's f32 mode.
@@ -1198,11 +1218,15 @@ def test_highest_inverse_slot_edges_match_each_image_alone(cuda, h, w):
 
 
 @pytest.mark.parametrize("view", ["one_byte_in", "crop", "transposed"])
-@pytest.mark.parametrize("h,w", [(444, 640), (640, 444)])
+@pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_highest_inverse_takes_views(cuda, h, w, view):
-    # Byte loads at the view's strides: an image one byte into its storage,
-    # a crop inside a border, a transposed layout; each marks what its
-    # contiguous copy marks, bit for bit.
+    # Each of the u8 epilogue's paths: the words of pixel-contiguous rows
+    # (444 x 640, 640 x 444 and their crops inside a border; one 16-byte
+    # vector of a row, 3 W = 1920 bytes, 1332 and 177 bytes), bytes for an
+    # image one byte into its storage, a transposed layout, and rows whose
+    # length is not a whole word (37 x 59). Each marks what its contiguous
+    # copy marks, bit for bit, and that is K7's rounding of the kernel's
+    # own dY.
     rgb, _ = _images(25, h, w, cuda)
     idx = _ranked(h, w, 1000, cuda)
     delta = _updates_at(idx, 25)
@@ -1216,9 +1240,10 @@ def test_highest_inverse_takes_views(cuda, h, w, view):
         moved = rgb.transpose(1, 2).contiguous().transpose(1, 2)
         assert not moved.is_contiguous()
     want = k10.highest_inverse(rgb, delta, idx)
-    assert torch.equal(k10.highest_inverse(moved, delta, idx), want)
-    assert torch.equal(want, k7.add_quantize_reference(
-        rgb, k10.sparse_delta(delta, idx, h, w), True))
+    got = k10.highest_inverse(moved, delta, idx)
+    assert torch.equal(got, want)
+    assert torch.equal(got, k7.add_quantize_reference(
+        moved, k10.sparse_delta(delta, idx, h, w), True))
 
 
 _K10_OUT_OF_RANGE = textwrap.dedent("""
