@@ -125,7 +125,7 @@ constexpr int kWgCols = 64;                   // a warpgroup's along L
 constexpr int kConsumers = 3;                 // consumer warpgroups
 constexpr int kCols = kWgCols * kConsumers;   // a tile's positions along L
 constexpr int kDepth = kRowFloats;            // slots a stage
-constexpr int kStages = 3;                    // the ring
+constexpr int kStages = 4;                    // the ring
 constexpr int kPassThreads = 128 * (1 + kConsumers);
 constexpr int kBoxes = kCols / 32;            // TMA boxes of 32 x 32 a stage
 constexpr uint32_t kXBytes = kCols * kDepth * sizeof(float);
@@ -150,10 +150,7 @@ struct Stage {
 };
 static_assert(sizeof(Stage) % 1024 == 0, "stages keep tiles aligned");
 constexpr size_t kEpBytes = kConsumers * kSPos * kEpPitch * sizeof(float);
-// A warpgroup's u8 sub-tile, word by word, as its threads copy it.
-constexpr size_t kU8Bytes = kConsumers * kSPos * 3 * kWgCols;
-constexpr size_t kPassSmem =
-    kStages * sizeof(Stage) + kEpBytes + kU8Bytes + 1024;
+constexpr size_t kPassSmem = kStages * sizeof(Stage) + kEpBytes + 1024;
 static_assert(kPassSmem + 2 * kStages * sizeof(uint64_t) <= 232448,
               "the ring exceeds a block's shared memory");
 
@@ -297,14 +294,6 @@ gather_kernel(const float* __restrict__ b_hi, const float* __restrict__ b_lo,
   }
 }
 
-// 4 bytes from global to shared memory by cp.async.
-__device__ __forceinline__ void cp_word(uint32_t* dst, const uint8_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   ssw::tf32::smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
 // Four pixels' 12 bytes (words w0, w1, w2) plus their dY (d) with K7's
 // rounding, as three words.
 __device__ __forceinline__ uint3 round_pixels(uint32_t w0, uint32_t w1,
@@ -322,71 +311,52 @@ __device__ __forceinline__ uint3 round_pixels(uint32_t w0, uint32_t w1,
            round_byte(w2, 2, d.w), round_byte(w2, 3, d.w)));
 }
 
-// The u8 epilogue of one warpgroup's sub-tile whose image rows are runs of
-// pixel-contiguous bytes, run a few units at a time under the products of
-// the warpgroup's next tile: `rows` rows of `npx` pixels (npx a multiple
-// of 4, since W is where rows start on words), row r's bytes at src + r *
-// src_row and dst + r * dst_row, pixel p's dY at dy[r * kEpPitch + p] (the
-// staged tile). A unit is four pixels, three words; thread tid takes units
-// tid, tid + 128, ...: start() copies their words into the thread's own
-// words of `own` by cp.async, so that none waits on device memory when it
-// is rounded and stored, and no other thread reads them.
-struct Drain {
-  const uint8_t* src;
-  uint8_t* dst;
-  long long src_row, dst_row;
-  const float* dy;
-  const uint32_t* own;
-  int q, mine, done;  // units a row; the thread's units, and those done
-
+// A sub-tile's u8 epilogue where its image rows are runs of pixel-
+// contiguous bytes that start on words: `rows` rows of `npx` pixels (npx
+// a multiple of 4, since W is), row r's bytes at src + r * src_row and
+// dst + r * dst_row, pixel p's dY at dy[r * kEpPitch + p] (the staged
+// tile). A unit is four pixels, three words; thread tid takes units tid,
+// tid + 128, ... (at most kUnits), loads all their words before it rounds
+// any, so that the sub-tile waits on device memory once, and stores them.
+constexpr int kUnits = kSPos * kWgCols / 4 / 128;
+__device__ __forceinline__ void epilogue_units(
+    const uint8_t* __restrict__ src, long long src_row,
+    uint8_t* __restrict__ dst, long long dst_row, const float* dy, int rows,
+    int npx, int tid) {
+  const int q = npx / 4, units = rows * q;
   // Unit u's row: a shift in a whole sub-tile's rows of 16 units.
-  __device__ __forceinline__ int row_of(int u) const {
-    return q == 16 ? u >> 4 : u / q;
-  }
-
-  __device__ __forceinline__ void start(const uint8_t* s, long long s_row,
-                                        uint8_t* d, long long d_row,
-                                        const float* y, uint32_t* words,
-                                        int rows, int npx, int tid) {
-    src = s, dst = d, src_row = s_row, dst_row = d_row, dy = y, own = words;
-    q = npx / 4;
-    const int units = rows * q;
-    mine = units > tid ? (units - tid + 127) / 128 : 0;
-    done = 0;
-    for (int k = 0, u = tid; k < mine; ++k, u += 128) {
-      const int r = row_of(u);
-      const uint8_t* at = src + r * src_row + 12 * (u - r * q);
+  auto row_of = [q](int u) { return q == 16 ? u >> 4 : u / q; };
+  uint32_t wd[kUnits][3];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) cp_word(words + 3 * u + i, at + 4 * i);
+  for (int k = 0; k < kUnits; ++k) {
+    const int u = tid + 128 * k;
+    if (u < units) {
+      const int r = row_of(u);
+      const uint32_t* at = reinterpret_cast<const uint32_t*>(
+          src + r * src_row + 12 * (u - r * q));
+#pragma unroll
+      for (int i = 0; i < 3; ++i) wd[k][i] = at[i];
     }
-    ssw::tf32::cp_commit();
   }
-
-  // Rounds and stores the thread's units until `target` of them are done.
-  __device__ __forceinline__ void step_to(int target) {
-    target = min(target, mine);
-    if (done >= target) return;
-    ssw::tf32::cp_wait<0>();
-    for (; done < target; ++done) {
-      const int u = threadIdx.x % 128 + 128 * done;
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int u = tid + 128 * k;
+    if (u < units) {
       const int r = row_of(u), p0 = 4 * (u - r * q);
-      const uint3 res =
-          round_pixels(own[3 * u], own[3 * u + 1], own[3 * u + 2],
-                       *reinterpret_cast<const float4*>(dy + r * kEpPitch +
-                                                        p0));
+      const uint3 res = round_pixels(
+          wd[k][0], wd[k][1], wd[k][2],
+          *reinterpret_cast<const float4*>(dy + r * kEpPitch + p0));
       uint32_t* out = reinterpret_cast<uint32_t*>(dst + r * dst_row + 3 * p0);
       out[0] = res.x;
       out[1] = res.y;
       out[2] = res.z;
     }
   }
-
-  __device__ __forceinline__ void finish() { step_to(mine); }
-};
+}
 
 // The pass's output: kOut 0 f32 dY; 1 u8, one byte at a time (any view);
-// 4 u8, in words (every image row of rgb and of out starts on one), each
-// tile's epilogue run under the next tile's products.
+// 4 u8, four pixels (three words) at a time (every image row of rgb and of
+// out starts on a word).
 //
 // dY = s D_S[:, A] M for every image, then the epilogue: u8 `out` (batch,
 // h, w, 3) contiguous from `rgb` at element strides (sb, sh, sw, sc), or
@@ -401,12 +371,10 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
             const uint8_t* __restrict__ rgb, long long sb, long long sh,
             long long sw, long long sc, void* __restrict__ out, int batch,
             int h, int w) {
-  constexpr bool kDrain = kOut == 4;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Stage* st = reinterpret_cast<Stage*>(
       smem_raw + ((1024 - (ssw::tf32::smem_addr(smem_raw) & 1023)) & 1023));
   float* ep = reinterpret_cast<float*>(st + kStages);
-  uint32_t* u8 = reinterpret_cast<uint32_t*>(ep + kEpBytes / sizeof(float));
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   const bool land = h <= w;
@@ -468,8 +436,6 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
   for (int e = 0; e < 4; ++e)
     off[e] = 32 * kDepth * box + sw128(t + 4 * (e / 2), pos[e % 2] % 32);
   float* tile_ep = ep + wg * kSPos * kEpPitch;
-  Drain drain;  // the last tile's u8 epilogue, where kDrain
-  drain.mine = drain.done = 0;
 
   float acc[32], p0[32], p1[32];
   uint32_t ah[4][4], al[4][4];
@@ -487,8 +453,7 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
       const uint64_t dh = sw128_desc(sg.b_hi), dl = sw128_desc(sg.b_lo);
       // The stage's four k-steps as K9's pass runs them: step q + 1's
       // products issued before step q is waited for and added; the last
-      // step drained with the stage. While step 0's products run, a few
-      // words of the last tile's epilogue, spread over the tile's stages.
+      // step drained with the stage.
 #pragma unroll
       for (int q = 0; q < kDepth / 8; ++q) {
         float(&p)[32] = q % 2 ? p1 : p0;
@@ -503,10 +468,6 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
         wgmma_n64(p, ah[q], dh + 2 * q, 1);
         wgmma_commit();
         fence_sums(p);
-        if constexpr (kDrain) {
-          if (q == 0)
-            drain.step_to(((kt + 1) * drain.mine + ktiles - 1) / ktiles);
-        }
         if (q > 0) {  // step q - 1 is done: added while step q runs
           wgmma_wait<1>();
           fence_sums(prev);
@@ -521,7 +482,6 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
       if (lane == 0) mbar_arrive(&empty[si]);  // the stage is free
     }
 
-    if constexpr (kDrain) drain.finish();  // the last tile's epilogue
     // acc[4 j + 2 hh + e]: position pos[hh] along L, 8 j + 2 t + e along S;
     // staged as image rows of pixels.
     wg_sync(wg);  // the warpgroup's reads of the last tile are done
@@ -542,12 +502,11 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
     const int y0 = land ? n0 : l0, x0 = land ? l0 : n0;
     const int rows = max(0, min(kSPos, (land ? s : l) - y0));
     const int npx = max(0, min(kWgCols, (land ? l : s) - x0));
-    if constexpr (kDrain) {
-      drain.start(rgb + image * sb + y0 * sh + 3LL * x0, sh,
-                  static_cast<uint8_t*>(out) +
-                      3 * (((long long)image * h + y0) * w + x0),
-                  3LL * w, tile_ep, u8 + wg * (kSPos * 3 * kWgCols / 4), rows,
-                  npx, tid);
+    if constexpr (kOut == 4) {
+      epilogue_units(rgb + image * sb + y0 * sh + 3LL * x0, sh,
+                     static_cast<uint8_t*>(out) +
+                         3 * (((long long)image * h + y0) * w + x0),
+                     3LL * w, tile_ep, rows, npx, tid);
     } else {
       // Any view (u8), or dY (f32): one pixel at a time.
 #pragma unroll 4
@@ -569,7 +528,6 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
       }
     }
   }
-  if constexpr (kDrain) drain.finish();
 }
 
 inline bool aligned16(const void* p) {
