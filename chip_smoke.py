@@ -56,22 +56,21 @@ Phases, one line of output each, any failure exits non-zero:
    bound from the distinct rows of the run's indices and its share of it,
    the first pass's share of its own bound beside it;
 3e. K10 (HIGHEST's sparse inverse: the compaction, a stable sort of the
-   indices by slot, and one pass that builds M over each image's distinct
-   rows and copies the shorter side's basis at those rows into shared
-   memory, the 3xTF32 product with K7's rounding in its u8 epilogue)
-   against its plain version (the f32 cuBLAS product, then K7's plain
-   rounding) through ``highest_inverse.gates``: dY within ``k10_bound``,
-   an f64 error at most the plain version's plus one pass's split term
-   and, at 48 x 1080p and 8 x 4K in landscape and portrait on 1/f
-   textures and on random u8 (the base's n = 1000 ranked indices, the
-   updates of n = 1000 marks), no larger than the plain route's; the u8
-   output K7's rounding of its own dY and within one step of the plain
-   u8; both modes bit-identical on a second call; the u8 mode on a crop
-   inside a border and on a copy one byte into its storage (the
-   epilogue's other paths) bit-identical to it; at 444 x 640, 640 x 444
-   and 37 x 59 at n = 1, 1000 and 20,000; its time at 48 x 1080p and 8 x
-   4K on both contents in both modes beside its plain version's, the old
-   route's (the product, then K7) and the f32 ``torch.matmul``
+   indices by slot, M over each image's distinct rows, G (the shorter
+   side's basis at those rows), the 3xTF32 product with K7's rounding in
+   its u8 epilogue) against its plain version (the f32 cuBLAS product,
+   then K7's plain rounding) through ``highest_inverse.gates``: dY within
+   ``k10_bound``, an f64 error at most the plain version's plus one
+   pass's split term and, at 48 x 1080p and 8 x 4K in landscape and
+   portrait on 1/f textures and on random u8 (the base's n = 1000 ranked
+   indices, the updates of n = 1000 marks), no larger than the plain
+   route's; the u8 output K7's rounding of its own dY and within one step
+   of the plain u8; both modes bit-identical on a second call; the u8
+   mode on a crop inside a border and on a copy one byte into its storage
+   (the epilogue's other paths) bit-identical to it; at 444 x 640, 640 x
+   444 and 37 x 59 at n = 1, 1000 and 20,000; its time at 48 x 1080p and
+   8 x 4K on both contents in both modes beside its plain version's, the
+   old route's (the product, then K7) and the f32 ``torch.matmul``
    product's, its device launches (at most ``K10_DEVICE_LAUNCHES``) and
    each one's device time, its peak memory beside the old route's, and
    its bound from the distinct rows of the run's indices, with its share
@@ -1735,22 +1734,23 @@ def _k10_timing(rgb, delta, idx) -> dict:
                peak_mb=peak_mb(lambda: k10.highest_inverse(rgb, delta, idx)),
                old_route_peak_mb=peak_mb(old_route), **k10_bound_ms(rgb, idx))
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-    rec["pass_share_of_bound"] = rec["bound_ms"] / rec["device_ms"].get(
-        "pass_kernel", [float("inf")])[0]
+    pass_ms = [ms for name, (ms, _) in rec["device_ms"].items()
+               if name.endswith("pass_kernel")]
+    rec["pass_share_of_bound"] = (rec["bound_ms"] / pass_ms[0]
+                                  if pass_ms else None)
     return rec
 
 
 #: K10's design, as the k10_time lines name it (csrc/highest_inverse.cu).
-K10_DESIGN = ("compaction; a stable sort of the indices by slot; one pass: "
-              "3xTF32 wgmma.m64n64k8 with D_S's listed rows (cp.async "
-              "copies of D_S^T's rows) from registers and M^T built in "
-              "shared memory by three producer warps, one a stage, on "
-              "192 x 64 tiles walked persistently, each k-step's f32 add "
-              "overlapped; the u8 epilogue without conversions, its words "
-              "copied by cp.async and rounded four pixels at a time under "
-              "the next tile's products")
-#: K10's device launches a call: the compaction, the sort, the pass.
-K10_DEVICE_LAUNCHES = 3
+K10_DESIGN = ("compaction; a stable sort of the indices by slot; M, f32 "
+              "sums over each slot's indices; G, D_S at the listed rows; "
+              "3xTF32 wgmma.m64n64k8 over each image's slots on 64 x 192 "
+              "tiles walked persistently, one TMA producer thread, each "
+              "k-step's f32 add overlapped; the u8 epilogue four pixels at "
+              "a time, all of a thread's words loaded before any is "
+              "rounded, K7's rounding without conversion instructions")
+#: K10's device launches a call: compaction, sort, M, G, the pass.
+K10_DEVICE_LAUNCHES = 5
 
 
 def phase_k10() -> dict:

@@ -101,9 +101,10 @@ def _inverse_case(cs, inverse, delta_of, rgb, delta, idx, args, name):
            "peak_mb": cs.peak_mb(lambda: inverse(rgb, delta, idx)),
            **cs.k10_bound_ms(rgb, idx)}
     inv["share_of_bound"] = inv["bound_ms"] / inv["ms"]
-    pass_ms = inv["device_ms"].get("pass_kernel", [0.0])[0]
+    pass_ms = [ms for name, (ms, _) in inv["device_ms"].items()
+               if name.endswith("pass_kernel")]
     if pass_ms:
-        inv["pass_share_of_bound"] = inv["bound_ms"] / pass_ms
+        inv["pass_share_of_bound"] = inv["bound_ms"] / pass_ms[0]
     if args.against:
         inv.update(_against(marked, Path(f"{args.against}_{name}.npy")))
     if args.save:

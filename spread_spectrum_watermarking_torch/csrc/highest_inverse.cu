@@ -79,13 +79,27 @@
 //      k-steps in flight, each stage drained before its slot is freed (a
 //      k-step in flight across the stage loop's back edge made ptxas
 //      serialize every wgmma in K9). The epilogue: each warpgroup scales its
-//      64 x 64 sums, stages them in shared memory (pitch 65), and walks the
-//      sub-tile's image rows (64 pixels, 192 bytes each): u8 mode adds dY
-//      with K7's rounding to each byte, in 16-, 8- or 4-byte vectors where
-//      every image row and output row starts on one (pixel-contiguous
-//      views; a 1920-wide row of u8 RGB is 5,760 bytes, a 1080-wide one
-//      3,240, a multiple of 8 only), one byte at a time otherwise and for
-//      any other view's strides; f32 mode writes dY.
+//      64 x 64 sums and stages them in shared memory as image rows of
+//      pixels (pitch 68), so that four pixels' dY are one 16-byte load. u8
+//      mode, where every image row and output row starts on a word
+//      (pixel-contiguous views whose width is a multiple of 4: 1920, 1080,
+//      3840): each thread takes units of four pixels (12 bytes, three
+//      words), loads all of its units' words before it rounds any (one
+//      wait on device memory a sub-tile, where 16-byte vectors two at a
+//      time waited three times), and rounds each byte with K7's rounding
+//      without a conversion instruction (csrc/u8_round.cuh: I2F, F2I and
+//      floorf's FRND run at 16 a clock per SM, and three of them a byte
+//      bound such an epilogue to 6,912 clocks a 36,864-byte tile): the
+//      byte placed in 2^23's mantissa by a byte permute, the clamp in the
+//      FMA's saturation, the floor an add rounded down to 2^23's integers,
+//      the bytes gathered back by byte permutes. One byte at a time for
+//      any other view's strides; f32 mode writes dY. (Spreading each
+//      tile's epilogue under the next tile's products, with the words
+//      copied into shared memory by cp.async and a ring of three stages,
+//      was no faster on random u8, and building M and D_S's listed rows in
+//      the producer instead of mbuild_kernel and gather_kernel took the
+//      pass 6.8 ms against 1.5, bit for bit: PERF.md, section 6, on
+//      NVIDIA H100 80GB HBM3 at 700 W.)
 #include <cstring>
 
 #include "compact_rows.cuh"

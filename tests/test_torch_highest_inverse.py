@@ -341,10 +341,18 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 def test_constants_match_the_source():
-    # M's rows are padded to the pass's k-depth, and the k-step of the
-    # emulation is wgmma's k of m64n64k8.tf32.
+    # M's rows are padded to the pass's k-depth; the k-step of the
+    # emulation is wgmma's k of m64n64k8.tf32, whose three products the
+    # kernel issues in the emulation's term order (M the A operand, from
+    # registers; D_S's listed columns, G, the B operand): lo_M hi_D, hi_M
+    # lo_D, hi_M hi_D; the u8 rounding is K7's, from its header.
     text = _SOURCE.read_text()
     assert re.search(r"constexpr int kDepth = kRowFloats;", text)
     assert k10._DEPTH == 32
-    assert "wgmma_n64(p, al[q], dh + 2 * q, 0);" in text
+    terms = ["wgmma_n64(p, al[q], dh + 2 * q, 0);",
+             "wgmma_n64(p, ah[q], dl + 2 * q, 1);",
+             "wgmma_n64(p, ah[q], dh + 2 * q, 1);"]
+    at = [text.index(x) for x in terms]
+    assert at == sorted(at)
     assert "#include \"u8_round.cuh\"" in text
+    assert "round_byte(" in text
