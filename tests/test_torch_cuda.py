@@ -1220,13 +1220,12 @@ def test_highest_inverse_slot_edges_match_each_image_alone(cuda, h, w):
 @pytest.mark.parametrize("view", ["one_byte_in", "crop", "transposed"])
 @pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_highest_inverse_takes_views(cuda, h, w, view):
-    # Each of the u8 epilogue's paths: the words of pixel-contiguous rows
-    # (444 x 640, 640 x 444 and their crops inside a border; one 16-byte
-    # vector of a row, 3 W = 1920 bytes, 1332 and 177 bytes), bytes for an
-    # image one byte into its storage, a transposed layout, and rows whose
-    # length is not a whole word (37 x 59). Each marks what its contiguous
-    # copy marks, bit for bit, and that is K7's rounding of the kernel's
-    # own dY.
+    # Each of the u8 epilogue's paths: four-pixel units where every row
+    # starts on a word (444 x 640 and 640 x 444, and their crops inside a
+    # border), one byte at a time for an image one byte into its storage,
+    # a transposed layout and a width that is not a multiple of 4 (37 x
+    # 59). Each marks what its contiguous copy marks, bit for bit, and
+    # that is K7's rounding of the kernel's own dY over the view's bytes.
     rgb, _ = _images(25, h, w, cuda)
     idx = _ranked(h, w, 1000, cuda)
     delta = _updates_at(idx, 25)
