@@ -66,8 +66,10 @@ Phases, one line of output each, any failure exits non-zero:
    indices, the updates of n = 1000 marks), no larger than the plain
    route's; the u8 output K7's rounding of its own dY and within one step
    of the plain u8; both modes bit-identical on a second call; the u8
-   mode on a crop inside a border and on a copy one byte into its storage
-   (the epilogue's other paths) bit-identical to it; at 444 x 640, 640 x
+   mode on a crop inside a border (the word units at the view's strides)
+   and on a copy one byte into its storage (the byte path) bit-identical
+   to the contiguous image's (TMA boxes at 1920 and 3840 wide, the word
+   units at 1080); at 444 x 640, 640 x
    444 and 37 x 59 at n = 1, 1000 and 20,000; its time at 48 x 1080p and
    8 x 4K on both contents in both modes beside its plain version's, the
    old route's (the product, then K7) and the f32 ``torch.matmul``
@@ -1629,11 +1631,13 @@ def k10_inputs(content: str, seed: int, b: int, h: int, w: int):
 
 
 def _k10_views(rgb):
-    """Views of ``rgb`` that take K10's other epilogue paths: ``crop``, the
-    image inside a border of 8 pixels (rows 3 (W + 16) bytes apart, its
-    base 8 bytes past a 16-byte boundary: 8- or 4-byte copies), and
-    ``one_byte_in``, a contiguous copy one byte into its storage (its
-    bytes one at a time)."""
+    """Views of ``rgb`` that take K10's other u8 epilogue paths than the
+    contiguous image's (TMA boxes where rows of 3 W bytes lie on 16, as at
+    1920 and 3840 wide; four-pixel word units at 1080): ``crop``, the image
+    inside a border of 8 pixels (rows 3 (W + 16) bytes apart, its base 8
+    bytes past a 16-byte boundary), which takes the word units at the
+    view's strides, and ``one_byte_in``, a contiguous copy one byte into
+    its storage, which takes the byte path."""
     import torch
 
     b, h, w, _ = rgb.shape
@@ -1746,9 +1750,12 @@ K10_DESIGN = ("compaction; a stable sort of the indices by slot; M, f32 "
               "sums over each slot's indices; G, D_S at the listed rows; "
               "3xTF32 wgmma.m64n64k8 over each image's slots on 64 x 192 "
               "tiles walked persistently, one TMA producer thread, each "
-              "k-step's f32 add overlapped; the u8 epilogue four pixels at "
-              "a time, all of a thread's words loaded before any is "
-              "rounded, K7's rounding without conversion instructions")
+              "k-step's f32 add overlapped; the u8 epilogue with K7's "
+              "rounding without conversion instructions, four pixels a "
+              "unit: where rows lie on 16 bytes each warpgroup's pixels "
+              "fetched by a second producer thread's TMA box during the "
+              "products and stored by TMA (a ring of three stages), "
+              "otherwise a thread's words all loaded before any is rounded")
 #: K10's device launches a call: compaction, sort, M, G, the pass.
 K10_DEVICE_LAUNCHES = 5
 

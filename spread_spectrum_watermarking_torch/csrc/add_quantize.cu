@@ -36,7 +36,8 @@
 namespace {
 
 using ssw::u8::add_clamped;
-using ssw::u8::quantize;
+using ssw::u8::pack4;
+using ssw::u8::round_byte;
 
 constexpr int kThreads = 256;
 
@@ -56,19 +57,17 @@ add_quantize_kernel(const uint8_t* __restrict__ rgb,
     const float4 d4 = reinterpret_cast<const float4*>(dy)[g];
     const float d[4] = {d4.x, d4.y, d4.z, d4.w};
     const uint32_t words[3] = {src[0], src[1], src[2]};
-    float v[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-      v[i] = add_clamped((words[i / 4] >> (8 * (i % 4))) & 255u, d[i / 3]);
     uint32_t* dst = reinterpret_cast<uint32_t*>(out) + 3 * g;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      dst[k] = quantize(v[4 * k]) | quantize(v[4 * k + 1]) << 8
-               | quantize(v[4 * k + 2]) << 16 | quantize(v[4 * k + 3]) << 24;
+      dst[k] = pack4(round_byte(words[k], 0, d[4 * k / 3]),
+                     round_byte(words[k], 1, d[(4 * k + 1) / 3]),
+                     round_byte(words[k], 2, d[(4 * k + 2) / 3]),
+                     round_byte(words[k], 3, d[(4 * k + 3) / 3]));
   }
   // The subpixels after the last whole group.
   for (long long i = 12 * groups + first; i < 3 * npix; i += stride)
-    out[i] = uint8_t(quantize(add_clamped(rgb[i], dy[i / 3])));
+    out[i] = uint8_t(round_byte(rgb[i], 0, dy[i / 3]));
 }
 
 // f32 mode. out: npix * 3 f32. `vec`: rgb 4-byte and out 16-byte aligned,

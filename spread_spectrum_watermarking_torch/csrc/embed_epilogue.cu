@@ -41,6 +41,7 @@
 // alone takes 0.49); the wmma kernel before this design took 3.89 ms from
 // factors that plain gathers had built in another 1.8. Registers: factor
 // pass 80, product 166, no spills.
+#include "u8_round.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -135,19 +136,17 @@ factor_tiles_kernel(const float* __restrict__ delta,
   }
 }
 
-constexpr uint32_t kTwo23Bits = 0x4B000000u;  // the bits of 2^23
-constexpr float kTwo23 = 8388608.0f;
 constexpr float kFloorMagic = 12582912.0f;    // 1.5 * 2^23
 
 // u + df quantized as colorspace.add_luma_delta_u8 quantizes it,
 // clamp(floor((u + df) + 0.5), 0, 255), bit for bit, on the FP32 pipe
-// rather than the conversion units: u arrives as the bits of 2^23 + u, an
-// exact float; floor commutes with the clamp to [0, 255]; and x + 1.5 * 2^23
+// rather than the conversion units: u arrives as the bits of 2^23 + u
+// (csrc/u8_round.cuh's byte_bits, shared with K7 and K10), an exact float; floor commutes with the clamp to [0, 255]; and x + 1.5 * 2^23
 // rounded down is 1.5 * 2^23 + floor(x) for x in [0, 255] (the unit there
 // is 1), so the low byte of its bits is the result.
 __device__ __forceinline__ uint32_t add_quantize(uint32_t two23_plus_u,
                                                  float df) {
-  const float u = __fsub_rn(__uint_as_float(two23_plus_u), kTwo23);
+  const float u = ssw::u8::to_f32(two23_plus_u);
   const float x = __fadd_rn(__fadd_rn(u, df), 0.5f);
   return __float_as_uint(__fadd_rd(fminf(fmaxf(x, 0.0f), 255.0f),
                                    kFloorMagic));
@@ -246,11 +245,9 @@ struct EmbedU8 {
             uint32_t b[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              b[j] = add_quantize(__byte_perm(in[wd], kTwo23Bits, 0x7650 | j),
+              b[j] = add_quantize(ssw::u8::byte_bits(in[wd], j),
                                   pixel_dy(df, 4 * wd + j, o));
-            // The low bytes of b[0..3], in order.
-            res[wd] = __byte_perm(__byte_perm(b[0], b[1], 0x0040),
-                                  __byte_perm(b[2], b[3], 0x0040), 0x5410);
+            res[wd] = ssw::u8::pack4(b[0], b[1], b[2], b[3]);
           }
           *reinterpret_cast<uint4*>(out + first + rr * pitch + 16 * v) =
               make_uint4(res[0], res[1], res[2], res[3]);
@@ -264,7 +261,7 @@ struct EmbedU8 {
         const float df = __fmul_rn(
             __bfloat162float(dy[dy_at(half * 64 + rr, b / 3)]), 255.0f);
         const size_t at = first + rr * pitch + b;
-        out[at] = uint8_t(add_quantize(kTwo23Bits | rgb[at], df));
+        out[at] = uint8_t(add_quantize(ssw::u8::byte_bits(rgb[at], 0), df));
       }
     }
     warpgroup_sync(half);  // dY is read before the next tile's is staged

@@ -70,7 +70,7 @@
 //      (k-tiles of 32, padded with zero slots). One block per SM walks the
 //      tiles, image by image, L tile by L tile, S tile fastest (so blocks at
 //      work at the same time share M's tile). One producer thread fills a
-//      ring of four 40 KB stages on mbarriers, all by TMA (3-D tensor maps,
+//      ring of four 40 KB stages (three in <16>, below) on mbarriers, all by TMA (3-D tensor maps,
 //      128-byte swizzle): M's 32 slot rows by 192 positions, as K9 loads the
 //      luma, and G's 64 positions by 32 slots, both parts. setmaxnreg gives
 //      the producer warpgroup 40 registers and each consumer thread
@@ -80,25 +80,34 @@
 //      k-step in flight across the stage loop's back edge made ptxas
 //      serialize every wgmma in K9). The epilogue: each warpgroup scales its
 //      64 x 64 sums and stages them in shared memory as image rows of
-//      pixels (pitch 68), so that four pixels' dY are one 16-byte load. u8
-//      mode, where every image row and output row starts on a word
-//      (pixel-contiguous views whose width is a multiple of 4: 1920, 1080,
-//      3840): each thread takes units of four pixels (12 bytes, three
-//      words), loads all of its units' words before it rounds any (one
-//      wait on device memory a sub-tile, where 16-byte vectors two at a
-//      time waited three times), and rounds each byte with K7's rounding
-//      without a conversion instruction (csrc/u8_round.cuh: I2F, F2I and
-//      floorf's FRND run at 16 a clock per SM, and three of them a byte
-//      bound such an epilogue to 6,912 clocks a 36,864-byte tile): the
-//      byte placed in 2^23's mantissa by a byte permute, the clamp in the
-//      FMA's saturation, the floor an add rounded down to 2^23's integers,
-//      the bytes gathered back by byte permutes. One byte at a time for
-//      any other view's strides; f32 mode writes dY. (Spreading each
-//      tile's epilogue under the next tile's products, with the words
-//      copied into shared memory by cp.async and a ring of three stages,
-//      was no faster on random u8, and building M and D_S's listed rows in
-//      the producer instead of mbuild_kernel and gather_kernel took the
-//      pass 6.8 ms against 1.5, bit for bit: PERF.md, section 6, on
+//      pixels (pitch 68), so that four pixels' dY are one 16-byte load, and
+//      rounds each byte with K7's rounding without a conversion instruction
+//      (csrc/u8_round.cuh: I2F, F2I and floorf's FRND run at 16 a clock per
+//      SM, and three of them a byte bound such an epilogue to 6,912 clocks
+//      a 36,864-byte tile), four pixels (12 bytes, three words) a unit. Its
+//      u8 forms, by the views' alignment:
+//      <16> where rgb's rows, planes and base and out's rows lie on 16
+//      bytes (1920- and 3840-wide images): a second producer thread fetches
+//      each warpgroup's 64 x 192-byte sub-tile of pixels by TMA while the
+//      tile's products run, the epilogue reads it from shared memory,
+//      writes the bytes over its staged dY and stores them by TMA; the ring
+//      is three stages, so that the three boxes (36,864 B) fit beside the
+//      staged dY (52,224 B). Adding straight from the accumulators would
+//      drop the staging, but a thread's fragment holds two pixels of a row,
+//      not next to each other, so its 96 bytes a tile would be byte-wide
+//      shared-memory reads and writes: four times the word form's
+//      accesses.
+//      <4> where every image row of rgb and of out starts on a word
+//      (1080-wide rows, views off 16 bytes): each thread loads all of its
+//      units' words from device memory before it rounds any (one wait a
+//      sub-tile).
+//      <1> for any other view's strides, one byte at a time; <0>, the f32
+//      mode, writes dY.
+//      (Spreading each tile's epilogue under the next tile's products, with
+//      the words copied into shared memory by cp.async and a ring of three
+//      stages, was no faster on random u8, and building M and D_S's listed
+//      rows in the producer instead of mbuild_kernel and gather_kernel took
+//      the pass 6.8 ms against 1.5, bit for bit: PERF.md, section 6, on
 //      NVIDIA H100 80GB HBM3 at 700 W.)
 #include <cstring>
 
@@ -111,10 +120,13 @@
 namespace {
 
 using ssw::ring::chunk_of;
+using ssw::ring::fence_async_smem;
 using ssw::ring::fence_sums;
 using ssw::ring::regs_dec;
 using ssw::ring::regs_inc;
 using ssw::ring::tma_load;
+using ssw::ring::tma_store;
+using ssw::ring::tma_store_wait;
 using ssw::rows::compact_kernel;
 using ssw::rows::kCompactSmem;
 using ssw::rows::kCompactThreads;
@@ -126,8 +138,7 @@ using ssw::tf32::wgmma_commit;
 using ssw::tf32::wgmma_fence;
 using ssw::tf32::wgmma_n64;
 using ssw::tf32::wgmma_wait;
-using ssw::u8::add_clamped;
-using ssw::u8::quantize;
+using ssw::u8::pack4;
 using ssw::u8::round_byte;
 using ssw::wg::mbar_arrive;
 using ssw::wg::mbar_expect_tx;
@@ -139,7 +150,7 @@ constexpr int kWgCols = 64;                   // a warpgroup's along L
 constexpr int kConsumers = 3;                 // consumer warpgroups
 constexpr int kCols = kWgCols * kConsumers;   // a tile's positions along L
 constexpr int kDepth = kRowFloats;            // slots a stage
-constexpr int kStages = 4;                    // the ring
+constexpr int kStages = 4;                    // the ring (<16>: 3)
 constexpr int kPassThreads = 128 * (1 + kConsumers);
 constexpr int kBoxes = kCols / 32;            // TMA boxes of 32 x 32 a stage
 constexpr uint32_t kXBytes = kCols * kDepth * sizeof(float);
@@ -164,8 +175,24 @@ struct Stage {
 };
 static_assert(sizeof(Stage) % 1024 == 0, "stages keep tiles aligned");
 constexpr size_t kEpBytes = kConsumers * kSPos * kEpPitch * sizeof(float);
-constexpr size_t kPassSmem = kStages * sizeof(Stage) + kEpBytes + 1024;
-static_assert(kPassSmem + 2 * kStages * sizeof(uint64_t) <= 232448,
+// <16>: a warpgroup's sub-tile of u8 pixels, one TMA box (64 image rows of
+// 64 pixels), fetched while the products run.
+constexpr int kBoxRowBytes = 3 * kWgCols;
+constexpr uint32_t kBoxBytes = kSPos * kBoxRowBytes;
+static_assert(kBoxRowBytes % 16 == 0 && kBoxRowBytes <= 256,
+              "a TMA box's rows are 16-byte multiples of at most 256");
+static_assert(kSPos * kEpPitch * sizeof(float) % 128 == 0,
+              "each warpgroup's staged dY is a TMA store's source");
+__host__ __device__ constexpr int ring_of(int out) {
+  return out == 16 ? 3 : kStages;
+}
+constexpr size_t pass_smem(int out) {
+  return ring_of(out) * sizeof(Stage) + kEpBytes +
+         (out == 16 ? kConsumers * kBoxBytes : 0) + 1024;
+}
+static_assert(pass_smem(4) + 2 * kStages * sizeof(uint64_t) <= 232448 &&
+                  pass_smem(16) + 4 * (kStages + kConsumers) *
+                                          sizeof(uint64_t) <= 232448,
               "the ring exceeds a block's shared memory");
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -312,17 +339,13 @@ gather_kernel(const float* __restrict__ b_hi, const float* __restrict__ b_lo,
 // rounding, as three words.
 __device__ __forceinline__ uint3 round_pixels(uint32_t w0, uint32_t w1,
                                               uint32_t w2, float4 d) {
-  auto word = [](uint32_t q0, uint32_t q1, uint32_t q2, uint32_t q3) {
-    return __byte_perm(__byte_perm(q0, q1, 0x0040),
-                       __byte_perm(q2, q3, 0x0040), 0x5410);
-  };
   return make_uint3(
-      word(round_byte(w0, 0, d.x), round_byte(w0, 1, d.x),
-           round_byte(w0, 2, d.x), round_byte(w0, 3, d.y)),
-      word(round_byte(w1, 0, d.y), round_byte(w1, 1, d.y),
-           round_byte(w1, 2, d.z), round_byte(w1, 3, d.z)),
-      word(round_byte(w2, 0, d.z), round_byte(w2, 1, d.w),
-           round_byte(w2, 2, d.w), round_byte(w2, 3, d.w)));
+      pack4(round_byte(w0, 0, d.x), round_byte(w0, 1, d.x),
+            round_byte(w0, 2, d.x), round_byte(w0, 3, d.y)),
+      pack4(round_byte(w1, 0, d.y), round_byte(w1, 1, d.y),
+            round_byte(w1, 2, d.z), round_byte(w1, 3, d.z)),
+      pack4(round_byte(w2, 0, d.z), round_byte(w2, 1, d.w),
+            round_byte(w2, 2, d.w), round_byte(w2, 3, d.w)));
 }
 
 // A sub-tile's u8 epilogue where its image rows are runs of pixel-
@@ -368,38 +391,107 @@ __device__ __forceinline__ void epilogue_units(
   }
 }
 
+// A sub-tile's u8 epilogue from the TMA box `px` (64 image rows of
+// kBoxRowBytes) and the staged dY, written over the staged dY as a box of
+// the same layout (the TMA store's source): thread tid takes units tid,
+// tid + 128, ... of four pixels (unit u: row u / 16, three words), reads
+// all its words and dY first, frees `px` (each warp arrives on `freed`)
+// and, once every thread of the warpgroup has read its dY, writes.
+// Neither read nor write has a bank conflict: a warp's 32 units cover two
+// rows, words 3 q + i and 48 + 3 q + i, 32 banks.
+__device__ __forceinline__ void epilogue_box(const uint8_t* px, float* dy,
+                                             uint64_t* freed, int wg,
+                                             int tid) {
+  const uint32_t* in = reinterpret_cast<const uint32_t*>(px);
+  uint32_t wd[kUnits][3];
+  float4 d[kUnits];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int u = tid + 128 * k, r = u / 16, q = u % 16;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      wd[k][i] = in[r * kBoxRowBytes / 4 + 3 * q + i];
+    d[k] = *reinterpret_cast<const float4*>(dy + r * kEpPitch + 4 * q);
+  }
+  __syncwarp();
+  if (tid % 32 == 0) mbar_arrive(freed);
+  wg_sync(wg);  // every dY of the sub-tile is read
+  uint32_t* res = reinterpret_cast<uint32_t*>(dy);
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int u = tid + 128 * k, r = u / 16, q = u % 16;
+    const uint3 o = round_pixels(wd[k][0], wd[k][1], wd[k][2], d[k]);
+    uint32_t* at = res + r * kBoxRowBytes / 4 + 3 * q;
+    at[0] = o.x;
+    at[1] = o.y;
+    at[2] = o.z;
+  }
+}
+
 // The pass's output: kOut 0 f32 dY; 1 u8, one byte at a time (any view);
 // 4 u8, four pixels (three words) at a time (every image row of rgb and of
-// out starts on a word).
+// out starts on a word); 16 u8 by TMA boxes (rgb's rows, planes and base
+// and out's rows 16-byte aligned, its pixels contiguous).
 //
 // dY = s D_S[:, A] M for every image, then the epilogue: u8 `out` (batch,
 // h, w, 3) contiguous from `rgb` at element strides (sb, sh, sw, sc), or
 // f32 dY `out` (batch, h, w). mmap: M (3-D: l_pitch-strided rows of L
 // floats, m_rows rows an image, batch images); gmap: G (3-D: rows of m_rows
-// slots, S rows an image, the batch's hi parts, then its lo parts).
+// slots, S rows an image, the batch's hi parts, then its lo parts); imap,
+// omap (<16> only): rgb and out as planes of h rows of 3 w bytes.
+//
+// <16>: the producer warpgroup's thread 32 fetches each warpgroup's u8
+// sub-tile of the next tile by TMA while the products run, into one box a
+// warpgroup (`pix`, on mbarriers pix_full / pix_empty), which is freed as
+// soon as the epilogue has its words in registers; the epilogue writes its
+// bytes over its staged dY and one thread stores them by TMA, whose reads
+// of that dY are waited for before the next tile stages there. The ring is
+// three stages, so that the boxes fit beside the staged dY.
 template <int kOut>
 __global__ void __launch_bounds__(kPassThreads, 1)
 pass_kernel(const __grid_constant__ CUtensorMap mmap,
             const __grid_constant__ CUtensorMap gmap,
+            const __grid_constant__ CUtensorMap imap,
+            const __grid_constant__ CUtensorMap omap,
             const int* __restrict__ count, float scale,
             const uint8_t* __restrict__ rgb, long long sb, long long sh,
             long long sw, long long sc, void* __restrict__ out, int batch,
             int h, int w) {
+  constexpr int kRing = ring_of(kOut);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   Stage* st = reinterpret_cast<Stage*>(
       smem_raw + ((1024 - (ssw::tf32::smem_addr(smem_raw) & 1023)) & 1023));
-  float* ep = reinterpret_cast<float*>(st + kStages);
-  __shared__ __align__(8) uint64_t full[kStages];
-  __shared__ __align__(8) uint64_t empty[kStages];
+  float* ep = reinterpret_cast<float*>(st + kRing);
+  uint8_t* pix = reinterpret_cast<uint8_t*>(ep + kEpBytes / sizeof(float));
+  __shared__ __align__(8) uint64_t full[kRing];
+  __shared__ __align__(8) uint64_t empty[kRing];
+  __shared__ __align__(8) uint64_t pix_full[kConsumers];
+  __shared__ __align__(8) uint64_t pix_empty[kConsumers];
   const bool land = h <= w;
   const int s = land ? h : w, l = land ? w : h;
   const int s_tiles = cdiv(s, kSPos), per_image = s_tiles * cdiv(l, kCols);
   const long long tiles = (long long)batch * per_image;
+  // Warpgroup wg's sub-tile of the tile at (m0, n0): image rows y0 .. y0 +
+  // rows - 1, pixels x0 .. x0 + npx - 1 (along L in landscape, along S in
+  // portrait); empty past the image's edge.
+  auto sub_tile = [&](int m0, int n0, int wg, int& y0, int& x0, int& rows,
+                      int& npx) {
+    const int l0 = m0 + kWgCols * wg;
+    y0 = land ? n0 : l0;
+    x0 = land ? l0 : n0;
+    rows = max(0, min(kSPos, (land ? s : l) - y0));
+    npx = max(0, min(kWgCols, (land ? l : s) - x0));
+  };
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kRing; ++i) {
       mbar_init(&full[i], 1);                // the producer's expect_tx
       mbar_init(&empty[i], kConsumers * 4);  // each consumer warp
+    }
+#pragma unroll
+    for (int i = 0; i < kConsumers; ++i) {
+      mbar_init(&pix_full[i], 1);   // thread 32's expect_tx
+      mbar_init(&pix_empty[i], 4);  // each warp of warpgroup i
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -407,16 +499,36 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
 
   if (threadIdx.x < 128) {
     // The producer: thread 0 issues every stage's TMA boxes, M's six and
-    // G's two.
+    // G's two; in <16> thread 32 each warpgroup's box of pixels.
     regs_dec<kProducerRegs>();
+    if constexpr (kOut == 16) {
+      if (threadIdx.x == 32) {
+        int boxes[kConsumers] = {};
+        for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+          const int image = int(tile / per_image);
+          const int rest = int(tile % per_image);
+          const int m0 = rest / s_tiles * kCols, n0 = rest % s_tiles * kSPos;
+#pragma unroll
+          for (int wg = 0; wg < kConsumers; ++wg) {
+            int y0, x0, rows, npx;
+            sub_tile(m0, n0, wg, y0, x0, rows, npx);
+            if (rows == 0 || npx == 0) continue;
+            mbar_wait(&pix_empty[wg], (boxes[wg]++ & 1) ^ 1);
+            mbar_expect_tx(&pix_full[wg], kBoxBytes);
+            tma_load(pix + wg * kBoxBytes, &imap, 3 * x0, y0, image,
+                     &pix_full[wg]);
+          }
+        }
+      }
+    }
     if (threadIdx.x != 0) return;
     int it = 0;
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int image = int(tile / per_image), rest = int(tile % per_image);
       const int m0 = rest / s_tiles * kCols, n0 = rest % s_tiles * kSPos;
       for (int kt = 0; kt < cdiv(count[image], kDepth); ++kt, ++it) {
-        const int si = it % kStages;
-        mbar_wait(&empty[si], ((it / kStages) & 1) ^ 1);
+        const int si = it % kRing;
+        mbar_wait(&empty[si], ((it / kRing) & 1) ^ 1);
         Stage& sg = st[si];
         const int k0 = kt * kDepth;
         mbar_expect_tx(&full[si], kXBytes + 2 * kBBytes);
@@ -453,7 +565,8 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
 
   float acc[32], p0[32], p1[32];
   uint32_t ah[4][4], al[4][4];
-  int it = 0;  // stages consumed so far
+  int it = 0;     // stages consumed so far
+  int boxes = 0;  // <16>: pixel boxes consumed so far
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int image = int(tile / per_image), rest = int(tile % per_image);
     const int m0 = rest / s_tiles * kCols, n0 = rest % s_tiles * kSPos;
@@ -461,8 +574,8 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
     for (int kt = 0; kt < ktiles; ++kt, ++it) {
-      const int si = it % kStages;
-      mbar_wait(&full[si], (it / kStages) & 1);
+      const int si = it % kRing;
+      mbar_wait(&full[si], (it / kRing) & 1);
       const Stage& sg = st[si];
       const uint64_t dh = sw128_desc(sg.b_hi), dl = sw128_desc(sg.b_lo);
       // The stage's four k-steps as K9's pass runs them: step q + 1's
@@ -498,6 +611,7 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
 
     // acc[4 j + 2 hh + e]: position pos[hh] along L, 8 j + 2 t + e along S;
     // staged as image rows of pixels.
+    if (kOut == 16 && tid == 0) tma_store_wait<true>();  // the last store's
     wg_sync(wg);  // the warpgroup's reads of the last tile are done
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
@@ -512,11 +626,17 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
     wg_sync(wg);
     // The tile's pixels, image row by image row: along L in landscape,
     // along S in portrait.
-    const int l0 = m0 + kWgCols * wg;
-    const int y0 = land ? n0 : l0, x0 = land ? l0 : n0;
-    const int rows = max(0, min(kSPos, (land ? s : l) - y0));
-    const int npx = max(0, min(kWgCols, (land ? l : s) - x0));
-    if constexpr (kOut == 4) {
+    int y0, x0, rows, npx;
+    sub_tile(m0, n0, wg, y0, x0, rows, npx);
+    if constexpr (kOut == 16) {
+      if (rows > 0 && npx > 0) {
+        mbar_wait(&pix_full[wg], boxes++ & 1);
+        epilogue_box(pix + wg * kBoxBytes, tile_ep, &pix_empty[wg], wg, tid);
+        fence_async_smem();
+        wg_sync(wg);
+        if (tid == 0) tma_store(&omap, tile_ep, 3 * x0, y0, image);
+      }
+    } else if constexpr (kOut == 4) {
       epilogue_units(rgb + image * sb + y0 * sh + 3LL * x0, sh,
                      static_cast<uint8_t*>(out) +
                          3 * (((long long)image * h + y0) * w + x0),
@@ -535,13 +655,14 @@ pass_kernel(const __grid_constant__ CUtensorMap mmap,
           uint8_t* dst = static_cast<uint8_t*>(out) + 3 * at;
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            dst[c] = uint8_t(quantize(add_clamped(src[c * sc], dy)));
+            dst[c] = uint8_t(round_byte(src[c * sc], 0, dy));
         } else {
           static_cast<float*>(out)[at] = dy;
         }
       }
     }
   }
+  if (kOut == 16 && tid == 0) tma_store_wait<false>();
 }
 
 inline bool aligned16(const void* p) {
@@ -626,9 +747,11 @@ extern "C" int ssw_highest_inverse(
     if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   }
 
-  CUtensorMap mmap, gmap;
+  CUtensorMap mmap, gmap, imap, omap;
   std::memset(&mmap, 0, sizeof(mmap));
   std::memset(&gmap, 0, sizeof(gmap));
+  std::memset(&imap, 0, sizeof(imap));
+  std::memset(&omap, 0, sizeof(omap));
   err = ssw::ring::map_3d(&mmap, m, l, m_rows, batch,
                           (long long)l_pitch * sizeof(float),
                           (long long)m_rows * l_pitch * sizeof(float));
@@ -645,17 +768,32 @@ extern "C" int ssw_highest_inverse(
       (long long)batch * cdiv(s, kSPos) * cdiv(l, kCols);
   // Words where every image row of rgb and of out starts on a 4-byte word
   // (pixel-contiguous rows; out is contiguous), bytes for any other view.
+  // TMA boxes where rgb's rows and planes, its base and out's rows all lie
+  // on 16 bytes (1920 and 3840 wide; not 1080).
   const bool words = sc == 1 && sw == 3 &&
                      reinterpret_cast<uintptr_t>(rgb) % 4 == 0 &&
                      sb % 4 == 0 && sh % 4 == 0 && (3LL * w) % 4 == 0;
-  auto kernel = !u8_out ? pass_kernel<0>
-                : words ? pass_kernel<4>
-                        : pass_kernel<1>;
+  const bool boxes = words && aligned16(rgb) && aligned16(out) &&
+                     sb % 16 == 0 && sh % 16 == 0 && (3LL * w) % 16 == 0;
+  const int form = !u8_out ? 0 : boxes ? 16 : words ? 4 : 1;
+  if (form == 16) {
+    err = ssw::ring::map_u8(&imap, rgb, 3LL * w, h, batch, sh, sb,
+                            kBoxRowBytes, kSPos);
+    if (err != cudaSuccess) return int(err);
+    err = ssw::ring::map_u8(&omap, out, 3LL * w, h, batch, 3LL * w,
+                            3LL * w * h, kBoxRowBytes, kSPos);
+    if (err != cudaSuccess) return int(err);
+  }
+  auto kernel = form == 0    ? pass_kernel<0>
+                : form == 16 ? pass_kernel<16>
+                : form == 4  ? pass_kernel<4>
+                             : pass_kernel<1>;
+  const size_t smem = form == 16 ? pass_smem(16) : pass_smem(0);
   err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kPassSmem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  kernel<<<int(tiles < sms ? tiles : sms), kPassThreads, kPassSmem,
-           stream>>>(mmap, gmap, count, scale, rgb, sb, sh, sw, sc, out,
-                     batch, h, w);
+  kernel<<<int(tiles < sms ? tiles : sms), kPassThreads, smem, stream>>>(
+      mmap, gmap, imap, omap, count, scale, rgb, sb, sh, sw, sc, out, batch,
+      h, w);
   return int(cudaGetLastError());
 }

@@ -1220,12 +1220,14 @@ def test_highest_inverse_slot_edges_match_each_image_alone(cuda, h, w):
 @pytest.mark.parametrize("view", ["one_byte_in", "crop", "transposed"])
 @pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_highest_inverse_takes_views(cuda, h, w, view):
-    # Each of the u8 epilogue's paths: four-pixel units where every row
-    # starts on a word (444 x 640 and 640 x 444, and their crops inside a
-    # border), one byte at a time for an image one byte into its storage,
-    # a transposed layout and a width that is not a multiple of 4 (37 x
-    # 59). Each marks what its contiguous copy marks, bit for bit, and
-    # that is K7's rounding of the kernel's own dY over the view's bytes.
+    # Each of the u8 epilogue's paths: TMA boxes where rows of 3 W bytes
+    # lie on 16 (the contiguous 444 x 640), four-pixel units where every
+    # row starts on a word (640 x 444, and the crops inside a border of 8,
+    # whose base is 8 bytes off 16), one byte at a time for an image one
+    # byte into its storage, a transposed layout and a width that is not a
+    # multiple of 4 (37 x 59). Each marks what its contiguous copy marks,
+    # bit for bit, and that is K7's rounding of the kernel's own dY over
+    # the view's bytes.
     rgb, _ = _images(25, h, w, cuda)
     idx = _ranked(h, w, 1000, cuda)
     delta = _updates_at(idx, 25)
@@ -1243,6 +1245,29 @@ def test_highest_inverse_takes_views(cuda, h, w, view):
     assert torch.equal(got, want)
     assert torch.equal(got, k7.add_quantize_reference(
         moved, k10.sparse_delta(delta, idx, h, w), True))
+
+
+@pytest.mark.parametrize("h,w", [(100, 208), (640, 432)])
+def test_highest_inverse_tma_boxes_at_the_edges(cuda, h, w):
+    # The TMA box form (rows of 3 W bytes on 16 bytes) where a tile's
+    # sub-tiles run past the image: 100 x 208 (an L tile of 16 pixels and
+    # two empty sub-tiles, an S tile of 36 rows) and the portrait 640 x 432
+    # (image rows along L). A contiguous image and a crop inside a border
+    # of 16 (its base and rows still on 16 bytes) mark what the byte path
+    # marks (the image one byte into its storage), bit for bit, and that is
+    # K7's rounding of the kernel's own dY.
+    rgb, _ = _images(26, h, w, cuda, b=3)
+    idx = _ranked(h, w, 1000, cuda, b=3)
+    delta = _updates_at(idx, 26)
+    big = torch.zeros((3, h + 32, w + 32, 3), dtype=torch.uint8, device=cuda)
+    big[:, 16:-16, 16:-16] = rgb
+    crop = big[:, 16:-16, 16:-16]
+    assert crop.data_ptr() % 16 == 0 and crop.stride(1) % 16 == 0
+    want = k10.highest_inverse(_one_byte_in(rgb), delta, idx)
+    assert torch.equal(want, k7.add_quantize_reference(
+        rgb, k10.sparse_delta(delta, idx, h, w), True))
+    for img in (rgb, crop):
+        assert torch.equal(k10.highest_inverse(img, delta, idx), want)
 
 
 _K10_OUT_OF_RANGE = textwrap.dedent("""
