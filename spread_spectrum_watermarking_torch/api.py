@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import trace
 from .config import Precision, ReadConfig, WriteConfig
 from .marks import as_marks
 from .models import pipeline
@@ -35,11 +36,17 @@ def _as_rgb_array(image) -> np.ndarray:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """The device's result on the host: the span ``ssw.d2h``."""
+    with trace.span("ssw.d2h"):
+        trace.count("d2h_bytes", t.nbytes)
+        return t.detach().cpu().numpy()
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.tensor(arr, device=device)  # a copy: arr may be read-only
+    """A host array on the device: the span ``ssw.h2d``."""
+    with trace.span("ssw.h2d"):
+        trace.count("h2d_bytes", arr.nbytes)
+        return torch.tensor(arr, device=device)  # a copy: arr may be read-only
 
 
 class Writer:

@@ -38,6 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import trace
 from .config import Precision, ReadConfig, WriteConfig
 
 _SIZES = {
@@ -130,8 +131,9 @@ def _flip(x: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
 @contextlib.contextmanager
 def _trace(profile_dir: str | None, device: torch.device):
     """``torch.profiler`` over the block, exported as a Chrome trace to
-    ``profile_dir/trace.json`` (the pipeline's stages carry
-    ``ssw.forward`` / ``ssw.rank`` / ``ssw.inverse`` ranges); nothing when
+    ``profile_dir/trace.json`` (the port's spans, ``ssw.*`` of
+    :mod:`.trace`, carry ranges there) and the spans and counters of
+    :mod:`.trace` to ``profile_dir/spans.json``; nothing when
     ``profile_dir`` is None."""
     if not profile_dir:
         yield
@@ -141,10 +143,12 @@ def _trace(profile_dir: str | None, device: torch.device):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    trace.take()  # what an earlier session left
     with profile(activities=activities) as prof:
         yield
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    trace.write(os.path.join(profile_dir, "spans.json"))
 
 
 def _inputs(rng, batch: int, h: int, w: int, length: int,
@@ -311,11 +315,13 @@ def run_verified_bench(batch: int = 32, size: str = "1080p",
 def run_similarity_sweep_bench(n_extracted: int = 1024, n_marks: int = 10000,
                                length: int = 1000, iters: int = 400,
                                precision: str = "highest",
-                               device="cuda") -> dict:
+                               device="cuda",
+                               profile_dir: str | None = None) -> dict:
     """The 10k-watermark similarity sweep (BASELINE.json config 4): one
     (B, N) @ (N, K) product, ``similarity(precision=...)``: "highest" (f32,
     TF32 off, the library default), "high" (bf16x3) or "default" (one
-    bf16 product with f32 sums, the screening configuration)."""
+    bf16 product with f32 sums, the screening configuration); optionally
+    traced into ``profile_dir`` as :func:`run_bench` does."""
     from .ops import modulation
 
     dev = torch.device(device)
@@ -330,7 +336,8 @@ def run_similarity_sweep_bench(n_extracted: int = 1024, n_marks: int = 10000,
         sims = modulation.similarity(e, marks, precision=prec)
         return e + sims[0, 0] * 1e-30
 
-    t, runs = _timed_chain(step, ext, iters, dev)
+    with _trace(profile_dir, dev):
+        t, runs = _timed_chain(step, ext, iters, dev)
     return {"similarity_pairs_per_sec": n_extracted * n_marks / t,
             "seconds": t, "precision": precision, **_backend(dev),
             "iters": max(int(iters), 1), "seconds_runs": runs}
@@ -580,8 +587,9 @@ def add_bench_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--iters", type=int, default=None,
                         help="Calls per timed chain (default: the config's).")
     parser.add_argument("--profile-dir", default=None,
-                        help="Write a torch.profiler Chrome trace here "
-                             "(throughput config).")
+                        help="Write a torch.profiler Chrome trace and the "
+                             "port's spans here (throughput and sweep "
+                             "configs).")
     parser.add_argument("--config", default="headline", choices=_CONFIGS,
                         help="headline: embed_verified at DEFAULT, 1080p; "
                              "throughput: embed and extract as separate "
@@ -640,6 +648,7 @@ def run_from_args(args: argparse.Namespace) -> int:
         res = run_similarity_sweep_bench(
             n_extracted=args.corpus_images, n_marks=args.sweep_marks,
             length=args.length, precision=args.precision, device=args.device,
+            profile_dir=args.profile_dir,
             **({"iters": args.iters} if args.iters is not None else {}))
     print(json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                       for k, v in res.items()}))

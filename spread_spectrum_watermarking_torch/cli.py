@@ -525,7 +525,7 @@ def cmd_bench(args, device: torch.device) -> int:
         show(bench.run_similarity_sweep_bench(
             n_extracted=args.corpus_images, n_marks=args.sweep_marks,
             length=args.length, iters=args.iters, precision=args.precision,
-            device=device), digits=6)
+            device=device, profile_dir=args.profile_dir), digits=6)
     return 0
 
 
@@ -610,7 +610,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_bench.add_argument("--iters", type=int, default=10)
     p_bench.add_argument("--profile-dir", default=None,
                          help="Write a torch.profiler trace here (Chrome "
-                              "trace JSON).")
+                              "trace JSON, trace.json) and the port's spans "
+                              "and counters (spans.json); throughput and "
+                              "sweep configs.")
     p_bench.add_argument("--config", default="throughput",
                          choices=["throughput", "latency", "extract-cached",
                                   "embed-verified", "corpus",

@@ -54,7 +54,8 @@ inline size_t compact_smem(int s) {
 __global__ void __launch_bounds__(kCompactThreads)
 compact_kernel(const long long* __restrict__ idx, long long idx_stride,
                int n, int h, int w, int s, int cap, int* __restrict__ count,
-               int* __restrict__ list, int* __restrict__ slots) {
+               int* __restrict__ list, int* __restrict__ slots,
+               unsigned long long* __restrict__ rows_total) {
   extern __shared__ uint32_t bits[];
   __shared__ int warp_sums[kCompactThreads / 32];
   const int words = cdiv(s, 32);
@@ -96,7 +97,11 @@ compact_kernel(const long long* __restrict__ idx, long long idx_stride,
   }
   __syncthreads();
   int place = incl - mine + (warp > 0 ? warp_sums[warp - 1] : 0);
-  if (threadIdx.x == kCompactThreads - 1) count[image] = place + mine;
+  if (threadIdx.x == kCompactThreads - 1) {
+    count[image] = place + mine;
+    if (rows_total != nullptr)
+      atomicAdd(rows_total, (unsigned long long)(place + mine));
+  }
   int* out = list + (long long)image * cap;
   for (int k = k0; k < k1; ++k) {
     before[k] = place;

@@ -684,9 +684,10 @@ inline bool aligned16(const void* p) {
 // g_elems f32, at least 2 batch S m_rows, 16-byte aligned; meta: scratch
 // of meta_elems int32, at least batch * (2 + 2 min(n, S) + 3 n) (each
 // image's count, the lists, the slots, the starts, the sorted coordinates
-// along L, the sorted updates as f32). Five
-// launches on `stream` (two without indices); returns the first CUDA error
-// code (0 when all were accepted).
+// along L, the sorted updates as f32); rows_total: an int64 on the device
+// that the images' counts of rows are added to, or null. Five launches on
+// `stream` (two without indices); returns the first CUDA error code (0 when
+// all were accepted).
 extern "C" int ssw_highest_inverse(
     const long long* idx, long long idx_stride, const float* delta,
     const float* b_hi, const float* b_lo, int s_pitch, const float* basis_lt,
@@ -694,7 +695,7 @@ extern "C" int ssw_highest_inverse(
     long long sw, long long sc, void* out, int u8_out, float* m,
     long long m_elems, float* g, long long g_elems, int* meta,
     long long meta_elems, int batch, int h, int w, int n,
-    cudaStream_t stream) {
+    long long* rows_total, cudaStream_t stream) {
   const int s = h <= w ? h : w, l = h <= w ? w : h;
   const int cap = n < s ? n : s;
   const int m_rows = cap > kDepth ? cdiv(cap, kDepth) * kDepth : kDepth;
@@ -721,7 +722,8 @@ extern "C" int ssw_highest_inverse(
     const size_t csmem = ssw::rows::compact_smem(s);
     if (csmem > kCompactSmem) return int(cudaErrorInvalidValue);
     compact_kernel<<<batch, kCompactThreads, csmem, stream>>>(
-        idx, idx_stride, n, h, w, s, cap, count, list, slots);
+        idx, idx_stride, n, h, w, s, cap, count, list, slots,
+        reinterpret_cast<unsigned long long*>(rows_total));
     if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
 
     const int osmem = cap * int(sizeof(int));

@@ -482,16 +482,18 @@ extern "C" int ssw_highest_read_pass(const float* y, const float* s_hi,
 // pitches multiples of 4, every pointer 16-byte aligned; d: scratch of
 // d_elems f32, at least batch * min(n, S) * l_pitch; meta: scratch of
 // meta_elems int32, at least batch * (1 + min(n, S) + n) (each image's
-// count, then the lists, then the slots); out: (batch, n) f32. Three
-// launches on `stream`; returns the first CUDA error code (0 when all
-// were accepted).
+// count, then the lists, then the slots); out: (batch, n) f32;
+// rows_total: an int64 on the device that the images' counts of rows are
+// added to, or null. Three launches on `stream`; returns the first CUDA
+// error code (0 when all were accepted).
 extern "C" int ssw_highest_read(const float* y, const long long* idx,
                                 long long idx_stride, const float* s_hi,
                                 const float* s_lo, int s_pitch,
                                 const float* basis_l, int l_pitch, float* d,
                                 long long d_elems, int* meta,
                                 long long meta_elems, float* out, int batch,
-                                int h, int w, int n, cudaStream_t stream) {
+                                int h, int w, int n, long long* rows_total,
+                                cudaStream_t stream) {
   const int s = h <= w ? h : w, l = h <= w ? w : h;
   const int cap = n < s ? n : s;
   if (d_elems < (long long)batch * cap * l_pitch ||
@@ -507,7 +509,8 @@ extern "C" int ssw_highest_read(const float* y, const long long* idx,
   const size_t smem = ssw::rows::compact_smem(s);
   if (smem > kCompactSmem) return int(cudaErrorInvalidValue);
   compact_kernel<<<batch, kCompactThreads, smem, stream>>>(
-      idx, idx_stride, n, h, w, s, cap, count, list, slots);
+      idx, idx_stride, n, h, w, s, cap, count, list, slots,
+      reinterpret_cast<unsigned long long*>(rows_total));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 

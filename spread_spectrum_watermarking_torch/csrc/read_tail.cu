@@ -260,8 +260,9 @@ void launch_operands(bool wide, dim3 grid, cudaStream_t stream,
 // bf16 DCT-II basis of L = max(h, w), (L, pitch) row-major, pitch =
 // ceil(L / 128) * 128, zeros past L; work, drows, meta: scratch of
 // `work_elems` bf16, `drows_elems` bf16 and `meta_elems` int32 (Layout;
-// kernels/read_tail.py sizes them); out: (batch, n) f32.
-// Four launches on `stream`; returns the first CUDA error code (0 when
+// kernels/read_tail.py sizes them); out: (batch, n) f32; rows_total: an
+// int64 on the device that the images' counts of rows are added to, or
+// null. Four launches on `stream`; returns the first CUDA error code (0 when
 // all were accepted).
 extern "C" int ssw_read_tail(const uint8_t* derived, const uint8_t* base,
                              const long long* idx, long long idx_stride,
@@ -271,7 +272,7 @@ extern "C" int ssw_read_tail(const uint8_t* derived, const uint8_t* base,
                              __nv_bfloat16* drows, long long drows_elems,
                              int* meta, long long meta_elems, float* out,
                              int batch, int h, int w, int n,
-                             cudaStream_t stream) {
+                             long long* rows_total, cudaStream_t stream) {
   const bool landscape = h <= w;
   const int s = landscape ? h : w;
   const Layout lay(s, landscape ? w : h, n);
@@ -286,7 +287,8 @@ extern "C" int ssw_read_tail(const uint8_t* derived, const uint8_t* base,
   const size_t smem = ssw::rows::compact_smem(s);
   if (smem > kCompactSmem) return int(cudaErrorInvalidValue);
   compact_kernel<<<batch, kCompactThreads, smem, stream>>>(
-      idx, idx_stride, n, h, w, s, lay.cap, count, list, slots);
+      idx, idx_stride, n, h, w, s, lay.cap, count, list, slots,
+      reinterpret_cast<unsigned long long*>(rows_total));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 

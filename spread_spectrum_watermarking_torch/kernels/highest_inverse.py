@@ -30,10 +30,12 @@ import functools
 
 import torch
 
+from .. import trace
 from ..ops import dct
 from . import _build
 from .add_quantize import add_quantize_reference
 from .dct2d_fused import SPLIT_TERMS, inverse_scale, split_tf32
+from .read_tail import count_rows
 
 #: Launches of the CUDA kernel in this process (plain-version calls excluded).
 LAUNCHES = 0
@@ -41,7 +43,7 @@ LAUNCHES = 0
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = [_P, _L, _P, _P, _P, _I, _P, _I, _F, _P, _L, _L, _L, _L, _P, _I,
-             _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _P]
+             _P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _P, _P]
 _U = 2.0 ** -24  # f32's unit roundoff
 _DEPTH = 32      # the kernel's slots a stage: M's rows are padded to it
 
@@ -102,6 +104,7 @@ def sparse_delta(delta: torch.Tensor, idx: torch.Tensor, h: int, w: int
     """
     _check(delta, idx, h, w, None)
     if delta.device.type == "cpu":
+        count_rows("k10", idx, h, w, delta.shape[0])
         return sparse_delta_reference(delta, idx, h, w)
     return _launch(delta, idx, h, w, None)
 
@@ -120,6 +123,7 @@ def highest_inverse(rgb: torch.Tensor, delta: torch.Tensor,
     h, w = (rgb.shape[1], rgb.shape[2]) if rgb.ndim == 4 else (1, 1)
     _check(delta, idx, h, w, rgb)
     if delta.device.type == "cpu":
+        count_rows("k10", idx, h, w, delta.shape[0])
         return highest_inverse_reference(rgb, delta, idx)
     return _launch(delta, idx, h, w, rgb)
 
@@ -181,7 +185,8 @@ def _launch(delta: torch.Tensor, idx: torch.Tensor, h: int, w: int,
             b_lo.data_ptr(), _pitch(s), basis_l.data_ptr(), _pitch(l),
             inverse_scale(h, w), rgb_ptr, *strides, out.data_ptr(),
             int(rgb is not None), m.data_ptr(), m.numel(), g.data_ptr(),
-            g.numel(), meta.data_ptr(), meta.numel(), b, h, w, n, stream)
+            g.numel(), meta.data_ptr(), meta.numel(), b, h, w, n,
+            trace.row_total("k10", b, dev), stream)
     _build.check(code, "ssw_highest_inverse")
     global LAUNCHES
     LAUNCHES += 1

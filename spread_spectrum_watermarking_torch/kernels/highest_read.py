@@ -33,16 +33,18 @@ import functools
 
 import torch
 
+from .. import trace
 from ..ops import dct
 from . import _build
 from .dct2d_fused import SPLIT_TERMS, split_tf32
+from .read_tail import count_rows
 
 #: Launches of the CUDA kernel in this process (plain-version calls excluded).
 LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _L, _P, _P, _I, _P, _I, _P, _L, _P, _L, _P, _I, _I, _I,
-             _I, _P]
+             _I, _P, _P]
 _U = 2.0 ** -24  # f32's unit roundoff
 
 
@@ -82,6 +84,7 @@ def highest_read(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if y.device.type == "cpu":
         if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= h * w):
             raise ValueError(f"idx must lie in [0, {h * w})")
+        count_rows("k9", idx, h, w, y.shape[0])
         return highest_read_reference(y, idx)
     out = _launch(y, idx)
     global LAUNCHES
@@ -137,7 +140,7 @@ def _launch(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             y.data_ptr(), idx.data_ptr(), idx_stride, s_hi.data_ptr(),
             s_lo.data_ptr(), _pitch(s), basis_l.data_ptr(), _pitch(l),
             d.data_ptr(), d.numel(), meta.data_ptr(), meta.numel(),
-            out.data_ptr(), b, h, w, n, stream)
+            out.data_ptr(), b, h, w, n, trace.row_total("k9", b, dev), stream)
     _build.check(code, "ssw_highest_read")
     return out
 

@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from .. import trace
 from ..config import Precision
 from ..ops import colorspace, dct
 from . import _build, _tiles
@@ -38,7 +39,7 @@ LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _L, _P, _P, _P, _L, _P, _L, _P, _L, _P,
-             _I, _I, _I, _I, _P]
+             _I, _I, _I, _I, _P, _P]
 _U = 2.0 ** -24  # f32's unit roundoff
 
 
@@ -57,6 +58,14 @@ def _check(derived: torch.Tensor, base: torch.Tensor,
                          f"{tuple(idx.shape)} {idx.dtype}")
     if idx.device != derived.device:
         raise ValueError("idx must be on the images' device")
+
+
+def count_rows(kernel: str, idx: torch.Tensor, h: int, w: int,
+               b: int) -> None:
+    """A plain version's ``trace`` row counter for ``kernel``: the counts
+    its compaction would write, while a profiler session records."""
+    if trace.on():
+        trace.rows(kernel, compact_rows_reference(idx, h, w, b)[0], b)
 
 
 def compact_rows_reference(idx: torch.Tensor, h: int, w: int, b: int
@@ -134,6 +143,7 @@ def read_tail(derived: torch.Tensor, base: torch.Tensor,
     if derived.device.type == "cpu":
         if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= h * w):
             raise ValueError(f"idx must lie in [0, {h * w})")
+        count_rows("k5", idx, h, w, derived.shape[0])
         return read_tail_reference(derived, base, idx)
     out = _launch(derived, base, idx)
     global LAUNCHES
@@ -168,7 +178,8 @@ def _launch(derived: torch.Tensor, base: torch.Tensor,
             derived.data_ptr(), base.data_ptr(), idx.data_ptr(), idx_stride,
             basis_s.data_ptr(), _long_basis(max(h, w), dev).data_ptr(),
             work.data_ptr(), n_work, drows.data_ptr(), n_drows,
-            meta.data_ptr(), n_meta, out.data_ptr(), b, h, w, n, stream)
+            meta.data_ptr(), n_meta, out.data_ptr(), b, h, w, n,
+            trace.row_total("k5", b, dev), stream)
     _build.check(code, "ssw_read_tail")
     return out
 

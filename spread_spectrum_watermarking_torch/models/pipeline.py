@@ -54,10 +54,14 @@ run through every entry point that the JAX package routes them through,
 on the same kernels. No pipeline folds (``dct.dct2_2d(fold=True)``, kernel
 K1f), as no JAX pipeline does.
 
-The stages carry the JAX pipeline's profiler scopes as
-``torch.profiler.record_function`` ranges: ``ssw.forward`` (transform and
-ranking of the base), ``ssw.rank`` (the selection) and ``ssw.inverse``
-(the inverse transform and the epilogue).
+Under a ``torch.profiler`` session each entry point and stage is a span
+of ``..trace`` (and a profiler range of the same name): the
+entry points as ``ssw.<name>``, and inside them the JAX pipeline's
+profiler scopes ``ssw.forward`` (transform and ranking of the base),
+``ssw.rank`` (the selection) and ``ssw.inverse`` (the inverse transform
+and the epilogue), and ``ssw.read`` (the derived image's coefficients at
+the ranked indices and the extraction). Without a profiler they cost a
+flag read.
 """
 
 from __future__ import annotations
@@ -65,8 +69,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..config import Method, Precision, ReadConfig, WriteConfig
 from ..kernels.dct2d_fused import inverse_scale
 from ..kernels.embed_epilogue import delta_plane, embed_epilogue
@@ -91,10 +95,11 @@ def _read_highest(derived: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     first pass at the indices' distinct rows only, 3xTF32, then the dots)
     on the card and its plain version, ``dct.dct2_coeffs_at``, on the CPU;
     for other images ``dct.dct2_coeffs_at`` of the f32 luma."""
-    y = colorspace.luma(derived)
-    if derived.dtype == torch.uint8:
-        return highest_read(y, idx)
-    return dct.dct2_coeffs_at(y, idx)
+    with trace.span("ssw.read"):
+        y = colorspace.luma(derived)
+        if derived.dtype == torch.uint8:
+            return highest_read(y, idx)
+        return dct.dct2_coeffs_at(y, idx)
 
 
 def _half_pass(rgb: torch.Tensor, precision: Precision) -> torch.Tensor:
@@ -130,7 +135,7 @@ def _rank_from_half(t: torch.Tensor, n: int, ordering, custom_metric,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Second pass + ranking from the half-transformed plane."""
     plane = _second_pass(t, ax)
-    with record_function("ssw.rank"):
+    with trace.span("ssw.rank"):
         return ranking.approx_top_indices(plane, n, ordering,
                                           custom_metric=custom_metric,
                                           version=rank_version)
@@ -180,7 +185,7 @@ def _modulate(idx: torch.Tensor, original: torch.Tensor,
 def _modulated(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fast prologue and the modulation: ``(idx, original, new)``."""
-    with record_function("ssw.forward"):
+    with trace.span("ssw.forward"):
         idx, original = _rank_and_values_fast(
             rgb, marks.shape[-1], config.ordering, config.precision,
             config.custom_ordering, config.rank_version)
@@ -195,7 +200,7 @@ def _embed_fast(rgb: torch.Tensor, marks: torch.Tensor, config: WriteConfig,
     and float output add the bf16 dY in f32 (the JAX package's XLA form)."""
     h, w = rgb.shape[-3], rgb.shape[-2]
     idx, original, new_values = _modulated(rgb, marks, config)
-    with record_function("ssw.inverse"):
+    with trace.span("ssw.inverse"):
         delta = new_values - original
         if quantize and rgb.dtype == torch.uint8:
             return (embed_epilogue(rgb.contiguous(), delta.to(torch.float32),
@@ -227,7 +232,7 @@ def _embed_fast_full_inverse(rgb: torch.Tensor, marks: torch.Tensor,
     coeffs = dct.dct2_2d(yiq[..., 0], precision=config.precision)
     flat = coeffs.reshape(b, h * w).scatter_add(-1, idx,
                                                 new_values - original)
-    with record_function("ssw.inverse"):
+    with trace.span("ssw.inverse"):
         y = dct.idct2_2d(flat.reshape(b, h, w), precision=config.precision)
         out = _with_luma(yiq, y)
     return colorspace.f32_to_u8(out) if quantize else out
@@ -239,10 +244,10 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
     """The reference-exact embed: ``(marked, idx, original)``, the last two
     being the base's ranked indices and f32 coefficients there, exactly
     what a Reader re-derives from the same base."""
-    with record_function("ssw.forward"):
+    with trace.span("ssw.forward"):
         coeffs = _forward(rgb, Precision.HIGHEST)
     b, h, w = coeffs.shape
-    with record_function("ssw.rank"):
+    with trace.span("ssw.rank"):
         idx = ranking.top_indices(coeffs, marks.shape[-1], config.ordering,
                                   custom_metric=config.custom_ordering)
     flat = coeffs.reshape(b, h * w)
@@ -252,7 +257,7 @@ def _embed_highest(rgb: torch.Tensor, marks: torch.Tensor,
         config.insertion.alpha, custom_insert=config.custom_insert,
         indices=idx)
     if sparse_idct:
-        with record_function("ssw.inverse"):
+        with trace.span("ssw.inverse"):
             delta = (new_values - original).to(torch.float32)
             if quantize and rgb.dtype == torch.uint8:
                 # Kernel K10 in its u8 mode: neither dY nor an f32 RGB
@@ -295,32 +300,34 @@ def _extract_fast_tail(base: torch.Tensor, derived: torch.Tensor,
     h, w = base.shape[-3], base.shape[-2]
     ax = dct.shorter_axis(h, w)
     u8 = base.dtype == torch.uint8 and derived.dtype == torch.uint8
-    if u8 and sparse_second:
-        num = read_tail(derived.contiguous(), base.contiguous(), idx)
-    else:
-        if u8:
-            td = luma_pass(derived.contiguous(), base.contiguous())
+    with trace.span("ssw.read"):
+        if u8 and sparse_second:
+            num = read_tail(derived.contiguous(), base.contiguous(), idx)
         else:
-            td = dct.dct2_pass(colorspace.luma_diff(base, derived).to(
-                torch.bfloat16), axis=ax, precision=Precision.DEFAULT,
-                out_dtype=torch.bfloat16)
-        if sparse_second:
-            num = dct.dct2_dot_at(td, idx, contracted_axis=ax,
-                                  precision=Precision.DEFAULT)
-        else:
-            other = -1 if ax == -2 else -2
-            dplane = dct.dct2_pass(td, axis=other, precision=Precision.DEFAULT)
-            num = torch.gather(dplane.reshape(*dplane.shape[:-2], h * w), -1,
-                               idx)
-    if config.custom_extract is not None:
-        return config.custom_extract(idx, base_vals, base_vals + num)
-    method, alpha = config.extraction.method, config.extraction.alpha
-    if method == Method.OPTION1:  # (d - b) / alpha
-        return num / alpha
-    if method == Method.OPTION2:  # (d - b) / (b * alpha)
-        return num / (base_vals * alpha)
-    if method == Method.OPTION3:  # ln(d / b) / alpha = log1p(num / b) / alpha
-        return torch.log1p(num / base_vals) / alpha
+            if u8:
+                td = luma_pass(derived.contiguous(), base.contiguous())
+            else:
+                td = dct.dct2_pass(colorspace.luma_diff(base, derived).to(
+                    torch.bfloat16), axis=ax, precision=Precision.DEFAULT,
+                    out_dtype=torch.bfloat16)
+            if sparse_second:
+                num = dct.dct2_dot_at(td, idx, contracted_axis=ax,
+                                      precision=Precision.DEFAULT)
+            else:
+                other = -1 if ax == -2 else -2
+                dplane = dct.dct2_pass(td, axis=other,
+                                       precision=Precision.DEFAULT)
+                num = torch.gather(dplane.reshape(*dplane.shape[:-2], h * w),
+                                   -1, idx)
+        if config.custom_extract is not None:
+            return config.custom_extract(idx, base_vals, base_vals + num)
+        method, alpha = config.extraction.method, config.extraction.alpha
+        if method == Method.OPTION1:  # (d - b) / alpha
+            return num / alpha
+        if method == Method.OPTION2:  # (d - b) / (b * alpha)
+            return num / (base_vals * alpha)
+        if method == Method.OPTION3:  # ln(d / b) / alpha, as log1p(num / b)
+            return torch.log1p(num / base_vals) / alpha
     raise ValueError(f"unknown method {method}")
 
 
@@ -341,6 +348,7 @@ def _extract_values(config: ReadConfig, idx: torch.Tensor,
                                      derived_vals)
 
 
+@trace.entry
 def embed(rgb: torch.Tensor, marks: torch.Tensor,
           config: WriteConfig = WriteConfig(), quantize: bool = True,
           sparse_idct: bool = True) -> torch.Tensor:
@@ -369,6 +377,7 @@ def embed(rgb: torch.Tensor, marks: torch.Tensor,
     return marked[0] if single else marked
 
 
+@trace.entry
 def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
                    config: WriteConfig = WriteConfig(),
                    quantize: bool = True
@@ -399,6 +408,7 @@ def embed_verified(rgb: torch.Tensor, marks: torch.Tensor,
     return marked, ext
 
 
+@trace.entry
 def prepare_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The base image's flat f32 coefficients at the tier and its exact
@@ -417,6 +427,7 @@ def prepare_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
     return flat, idx
 
 
+@trace.entry
 def prepare_derived(rgb: torch.Tensor, config: ReadConfig = ReadConfig()
                     ) -> torch.Tensor:
     """A derived image's flat f32 coefficients at the tier (reference
@@ -428,6 +439,7 @@ def prepare_derived(rgb: torch.Tensor, config: ReadConfig = ReadConfig()
     return flat[0] if single else flat
 
 
+@trace.entry
 def extract_prepared(base_flat: torch.Tensor, idx: torch.Tensor,
                      derived_flat: torch.Tensor,
                      config: ReadConfig = ReadConfig()) -> torch.Tensor:
@@ -435,10 +447,12 @@ def extract_prepared(base_flat: torch.Tensor, idx: torch.Tensor,
     the inverse equation (reference ``Reader::extract_watermark``,
     src/algorithm.rs:543-562). Meaningful at HIGHEST, where both planes
     are f32-exact."""
-    return _extract_values(config, idx, torch.gather(base_flat, -1, idx),
-                           torch.gather(derived_flat, -1, idx))
+    with trace.span("ssw.read"):
+        return _extract_values(config, idx, torch.gather(base_flat, -1, idx),
+                               torch.gather(derived_flat, -1, idx))
 
 
+@trace.entry
 def rank_base(rgb: torch.Tensor, n: int, config: ReadConfig = ReadConfig()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The base image's ranked ``(indices, values)`` through the fast
@@ -470,6 +484,7 @@ def rank_plane(rgb: torch.Tensor,
     return out[0] if single else out
 
 
+@trace.entry
 def extract_ranked(base: torch.Tensor, derived: torch.Tensor,
                    idx: torch.Tensor, base_vals: torch.Tensor,
                    config: ReadConfig = ReadConfig()) -> torch.Tensor:
@@ -489,7 +504,7 @@ def _extract_fused(base: torch.Tensor, derived: torch.Tensor, n: int,
     image's coefficients at the n indices only (HIGHEST), or the fast
     tiers' delta-exact read."""
     if config.precision is not Precision.HIGHEST:
-        with record_function("ssw.forward"):
+        with trace.span("ssw.forward"):
             idx, base_vals = _rank_and_values_fast(
                 base, n, config.ordering, config.precision,
                 config.custom_ordering, config.rank_version)
@@ -503,6 +518,7 @@ def _extract_fused(base: torch.Tensor, derived: torch.Tensor, n: int,
     return _extract_values(config, idx, base_vals, derived_vals)
 
 
+@trace.entry
 def extract(base: torch.Tensor, derived: torch.Tensor, n: int,
             config: ReadConfig = ReadConfig(),
             sparse_derived: bool = True) -> torch.Tensor:

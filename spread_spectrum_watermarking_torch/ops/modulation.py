@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..config import Method, Precision
 from .dct import matmul
 
@@ -73,11 +74,13 @@ def similarity(extracted: torch.Tensor, candidates: torch.Tensor,
     with TF32 off at HIGHEST, the JAX package's default; the bf16x3 split at
     HIGH; bf16 operands with f32 sums at DEFAULT. Under the null hypothesis
     each entry is ~N(0, 1), so a threshold of k means "k sigma" (reference:
-    src/algorithm.rs:696-714).
+    src/algorithm.rs:696-714). The span ``ssw.sweep`` of ``..trace``.
     """
-    nom = matmul(extracted, candidates.t(), precision)
-    den = torch.sqrt(torch.sum(extracted * extracted, dim=-1, keepdim=True))
-    return nom / den
+    with trace.span("ssw.sweep"):
+        nom = matmul(extracted, candidates.t(), precision)
+        den = torch.sqrt(torch.sum(extracted * extracted, dim=-1,
+                                   keepdim=True))
+        return nom / den
 
 
 def exceeds_sigma(sim: torch.Tensor, n_sigma: float) -> torch.Tensor:

@@ -115,19 +115,32 @@ def test_every_jax_result_key_present():
                 assert t[key] == j[key]
 
 
+def _profile_names(path):
+    """The range names of ``path/trace.json``, which equal the span names
+    of ``path/spans.json``."""
+    names = {e.get("name") for e in json.loads(
+        (path / "trace.json").read_text())["traceEvents"]}
+    spans = json.loads((path / "spans.json").read_text())
+    assert {x["name"] for x in spans["spans"]} <= names
+    assert "k5" in spans["counters"]
+    return names
+
+
 def test_profile_trace_names_the_stages(tmp_path):
+    stages = {"ssw.forward", "ssw.rank", "ssw.inverse", "ssw.read",
+              "ssw.embed", "ssw.extract"}
     tb.run_bench(batch=1, size="64x96", length=50, iters=1,
                  precision="default", quiet=True, profile_dir=str(tmp_path),
                  device="cpu")
-    names = {e.get("name") for e in json.loads(
-        (tmp_path / "trace.json").read_text())["traceEvents"]}
-    assert {"ssw.forward", "ssw.rank", "ssw.inverse"} <= names
+    assert stages <= _profile_names(tmp_path)
     tb.run_bench(batch=1, size="64x96", length=50, iters=1,
                  precision="highest", quiet=True,
                  profile_dir=str(tmp_path / "h"), device="cpu")
-    names = {e.get("name") for e in json.loads(
-        (tmp_path / "h" / "trace.json").read_text())["traceEvents"]}
-    assert {"ssw.forward", "ssw.rank", "ssw.inverse"} <= names
+    assert stages <= _profile_names(tmp_path / "h")
+    tb.run_similarity_sweep_bench(n_extracted=4, n_marks=8, length=16,
+                                  iters=2, device="cpu",
+                                  profile_dir=str(tmp_path / "s"))
+    assert "ssw.sweep" in _profile_names(tmp_path / "s")
 
 
 def test_timed_chain_chains_and_refuses_no_time(monkeypatch):

@@ -1304,3 +1304,40 @@ def test_highest_inverse_raises_at_an_index_out_of_range(cuda):
         k10.highest_inverse(rgb, delta, idx.cpu())  # CPU/CUDA mix
     with pytest.raises(ValueError):
         k10.highest_inverse(rgb.cpu(), delta, idx)  # CPU/CUDA mix
+
+
+@pytest.mark.parametrize("h, w", [(444, 640), (640, 444)])
+def test_trace_row_counters_and_stream_events(cuda, h, w):
+    # Under a CUDA-only profiler (the benchmark's traced window) the K5,
+    # K9 and K10 row counters, summed on the card from the compaction's
+    # counts, equal the plain compaction's; the outermost span's events
+    # lie on the host clock after its open and in order.
+    from torch.profiler import ProfilerActivity, profile
+
+    from spread_spectrum_watermarking_torch import trace
+
+    rgb, _ = _images(31, h, w, cuda, b=3)
+    marks = torch.randn((3, 1, 1000), generator=torch.Generator().manual_seed(
+        31)).to(cuda)
+    trace.take()
+    for prec, kernels in (("default", ("k5",)), ("highest", ("k9", "k10"))):
+        cfg = tw.WriteConfig(precision=tw.Precision(prec))
+        rcfg = tw.ReadConfig(precision=cfg.precision)
+        if prec == "default":
+            idx, _ = tp.rank_base(rgb, 1000, rcfg)
+        else:
+            _, idx = tp.prepare_base(rgb, 1000, rcfg)
+        rows = int(k5.compact_rows_reference(idx, h, w, 3)[0].sum())
+        with profile(activities=[ProfilerActivity.CUDA]):
+            tp.embed_verified(rgb, marks, cfg)
+        s = trace.take()
+        for k in kernels:
+            assert s["counters"][f"{k}_images"] == 3
+            assert s["counters"][f"{k}_rows"] == rows
+        top = [x for x in s["spans"] if x.parent is None]
+        assert [x.name for x in top] == ["ssw.embed_verified"]
+        x = top[0]
+        # the anchors place event times within a poll of the host clock
+        assert x.start - 20e-6 < x.device_start <= x.device_end
+        assert x.device_end > x.end - 1e-3
+        assert len(s["anchors"]) == 1
